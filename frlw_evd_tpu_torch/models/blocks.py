@@ -1,0 +1,170 @@
+"""Network building blocks (counterpart of frlw_evd_tpu/models/blocks.py).
+
+NCHW `nn.Module`s. Submodule names follow the JAX package's flax names
+(`conv`, `bn`, `layer1`, `m_0`, ...), so a flax variable path maps to the
+port's state_dict key by joining it with dots (see `weights.py`). At eval
+the JAX package's SpmdBatchNorm is plain BatchNorm (eps 1e-5).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def get_activation(name: str = "silu") -> Callable:
+    if name == "silu":
+        return F.silu
+    if name == "relu":
+        return F.relu
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, 0.1)
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")   # jax.nn.gelu default
+    raise ValueError(f"Unsupported act type: {name}")
+
+
+class PatchFusedConv2d(nn.Module):
+    """3x3 conv over a 2x2-patchified grid, applied to the raw grid as one
+    6x6 stride-2 conv (blocks.py:149-174).
+
+    conv3x3(space_to_depth_patches(x)) equals conv6x6_s2(x, W6) with
+    W6[o, c, 2a+sy, 2b+sx] = W3[o, (2sx+sy)*C + c, a, b] (patch channel
+    order [tl, bl, tr, br] = block 2sx+sy). The parameter keeps the
+    canonical (O, 4C, 3, 3) shape, so checkpoints carry over unchanged."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, 4 * in_channels,
+                                               3, 3))
+
+    def forward(self, x):
+        O, C4 = self.weight.shape[:2]
+        w6 = self.weight.view(O, 2, 2, C4 // 4, 3, 3)     # (o, sx, sy, c, a, b)
+        w6 = w6.permute(0, 3, 4, 2, 5, 1).reshape(O, C4 // 4, 6, 6)
+        return F.conv2d(x, w6, stride=2, padding=2)
+
+
+class BaseConv(nn.Module):
+    """Conv2d → BatchNorm → activation (blocks.py:177).
+
+    patchify_fused=True takes the raw (pre-patchify) grid with
+    `in_channels` channels and applies patchify + 3x3 conv as one 6x6
+    stride-2 conv (the Focus / BFM stem configuration)."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int,
+                 stride: int = 1, groups: int = 1, bias: bool = False,
+                 act: str = "silu", patchify_fused: bool = False):
+        super().__init__()
+        if patchify_fused:
+            if (ksize, stride, groups, bias) != (3, 1, 1, False):
+                raise ValueError("patchify_fused needs ksize=3, stride=1, "
+                                 "groups=1, bias=False")
+            self.conv = PatchFusedConv2d(in_channels, out_channels)
+        else:
+            self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
+                                  (ksize - 1) // 2, groups=groups, bias=bias)
+        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class Bottleneck(nn.Module):
+    """Standard bottleneck (blocks.py:241)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 act: str = "silu"):
+        super().__init__()
+        hidden = int(out_channels * expansion)
+        self.conv1 = BaseConv(in_channels, hidden, 1, act=act)
+        self.conv2 = BaseConv(hidden, out_channels, 3, act=act)
+        self.add = shortcut and in_channels == out_channels
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        return y + x if self.add else y
+
+
+class ResLayer(nn.Module):
+    """1x1 halve → 3x3 restore → add (blocks.py:261)."""
+
+    def __init__(self, in_channels: int, act: str = "silu"):
+        super().__init__()
+        self.layer1 = BaseConv(in_channels, in_channels // 2, 1, act=act)
+        self.layer2 = BaseConv(in_channels // 2, in_channels, 3, act=act)
+
+    def forward(self, x):
+        return x + self.layer2(self.layer1(x))
+
+
+class SPPBottleneck(nn.Module):
+    """Spatial pyramid pooling (blocks.py:275)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_sizes: Sequence[int] = (5, 9, 13), act: str = "silu"):
+        super().__init__()
+        hidden = in_channels // 2
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.conv1 = BaseConv(in_channels, hidden, 1, act=act)
+        self.conv2 = BaseConv(hidden * (len(self.kernel_sizes) + 1),
+                              out_channels, 1, act=act)
+
+    def forward(self, x):
+        x = self.conv1(x)
+        pools = [F.max_pool2d(x, ks, stride=1, padding=ks // 2)
+                 for ks in self.kernel_sizes]
+        return self.conv2(torch.cat([x] + pools, dim=1))
+
+
+class CSPLayer(nn.Module):
+    """C3 / CSP bottleneck with 3 convs (blocks.py:295)."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1,
+                 shortcut: bool = True, expansion: float = 0.5,
+                 act: str = "silu"):
+        super().__init__()
+        hidden = int(out_channels * expansion)
+        self.n = n
+        self.conv1 = BaseConv(in_channels, hidden, 1, act=act)
+        self.conv2 = BaseConv(in_channels, hidden, 1, act=act)
+        for i in range(n):
+            self.add_module(f"m_{i}", Bottleneck(hidden, hidden, shortcut,
+                                                 1.0, act=act))
+        self.conv3 = BaseConv(2 * hidden, out_channels, 1, act=act)
+
+    def forward(self, x):
+        x1 = self.conv1(x)
+        for i in range(self.n):
+            x1 = getattr(self, f"m_{i}")(x1)
+        return self.conv3(torch.cat([x1, self.conv2(x)], dim=1))
+
+
+def space_to_depth_patches(x: torch.Tensor) -> torch.Tensor:
+    """2x2 patchify of an NHWC tensor with the reference channel order
+    (top_left, bot_left, top_right, bot_right) — blocks.py:317-324."""
+    tl = x[:, ::2, ::2, :]
+    tr = x[:, ::2, 1::2, :]
+    bl = x[:, 1::2, ::2, :]
+    br = x[:, 1::2, 1::2, :]
+    return torch.cat([tl, bl, tr, br], dim=-1)
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem (blocks.py:327), as the fused 6x6 stride-2 conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
+                 act: str = "silu"):
+        super().__init__()
+        if ksize != 3:
+            raise ValueError("the port's Focus stem is the fused ksize=3 form")
+        self.conv = BaseConv(in_channels, out_channels, 3, act=act,
+                             patchify_fused=True)
+
+    def forward(self, x):
+        return self.conv(x)

@@ -1,0 +1,123 @@
+"""Port kernels on the card against their plain twins (marker `cuda`).
+
+These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
+no JAX, so on a machine without it they run with conftest.py left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+Tolerances: counts exact; t-sums within the f32 reordering bound
+cnt^2 * 2^-23 (atomics add in a run-dependent order); the update's state
+exact; volumes within one bf16 ulp (2^-8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from frlw_evd_tpu_torch import pipeline
+from frlw_evd_tpu_torch.encode import (scatter_cnt_tsum,
+                                       scatter_cnt_tsum_plain,
+                                       taf_update_leaky,
+                                       taf_update_leaky_plain)
+from frlw_evd_tpu_torch.models import build_detector
+
+pytestmark = pytest.mark.cuda
+
+SENSOR, INPUT = (60, 72), (64, 96)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _events(B=4, E=4096, seed=0):
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(seed), 1, B,
+                                          E, SENSOR)
+    ev[0, 0, :64, 0] = -1.5                  # out of range
+    ev[0, 1, :64, 3] = 2.0
+    return torch.from_numpy(ev[0]), torch.from_numpy(nv[0])
+
+
+def test_scatter_kernel_matches_twin(cuda):
+    ev, nv = _events()
+    ev, nv = ev.to(cuda), nv.to(cuda)
+    before = scatter_cnt_tsum.launches
+    cnt, tsum, anyv = scatter_cnt_tsum(ev, nv, height=SENSOR[0],
+                                       width=SENSOR[1])
+    torch.cuda.synchronize()
+    assert scatter_cnt_tsum.launches == before + 1
+    p_cnt, p_tsum, p_any = scatter_cnt_tsum_plain(ev, nv, height=SENSOR[0],
+                                                  width=SENSOR[1])
+    torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
+    assert (anyv == p_any).all()
+    assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
+
+
+def test_update_kernel_matches_twin(cuda):
+    ev, nv = _events()
+    nv[2] = 0                                 # frozen stream
+    ev, nv = ev.to(cuda), nv.to(cuda)
+    H, W = SENSOR
+    cnt, tsum, anyv = scatter_cnt_tsum_plain(ev, nv, height=H, width=W)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = -40.0 * torch.rand(4, H, W * 16, device=cuda, generator=g)
+    plain_state = state.clone()
+    frozen = state[2].clone()
+    before = taf_update_leaky.launches
+    _, vol = taf_update_leaky(state, cnt, tsum, anyv, height=H, width=W)
+    _, p_vol = taf_update_leaky_plain(plain_state, cnt, tsum, anyv, height=H,
+                                      width=W)
+    torch.cuda.synchronize()
+    assert taf_update_leaky.launches == before + 1
+    torch.testing.assert_close(state, plain_state, rtol=0, atol=0)
+    torch.testing.assert_close(state[2], frozen, rtol=0, atol=0)
+    torch.testing.assert_close(vol.float(), p_vol.float(), rtol=0,
+                               atol=2.0 ** -8)
+
+
+def test_wrappers_raise_on_misaligned_events(cuda):
+    _, nv = _events(B=2, E=64)
+    flat = torch.zeros(2 * 64 * 4 + 1, device=cuda)
+    misaligned = flat[1:].view(2, 64, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        scatter_cnt_tsum(misaligned, nv.to(cuda), height=SENSOR[0],
+                         width=SENSOR[1])
+
+
+def test_pipeline_on_card_matches_cpu(cuda):
+    """The slice on the card (kernels, cuDNN, f32 without TF32) against the
+    same slice on the CPU (plain twins), mini GEN1 geometry, 3 windows."""
+    def make(device):
+        model = build_detector(2, stem="bfm", in_channels=(32, 32, 32),
+                               stem_out_channels=16, head_width=32)
+        pipeline.spread_random_weights_(model,
+                                        torch.Generator().manual_seed(1))
+        return pipeline.make_pipeline_kernel(model, SENSOR, INPUT,
+                                             device=device,
+                                             dtype=torch.float32)
+    runs = {d: make(d) for d in ("cpu", "cuda")}
+    states = {d: pipeline.new_state(2, SENSOR, device=d) for d in runs}
+    ev, nv = pipeline.synth_events(np.random.default_rng(0), 3, 2, 1024,
+                                   SENSOR)
+    for i in range(3):
+        vols = {}
+        for d, run in runs.items():
+            states[d], vols[d] = run.stages["encode_transform"](
+                states[d], torch.from_numpy(ev[i]).to(d),
+                torch.from_numpy(nv[i]).to(d))
+        torch.testing.assert_close(states["cuda"].cpu(), states["cpu"],
+                                   rtol=0, atol=1e-2)
+        torch.testing.assert_close(vols["cuda"].cpu().float(),
+                                   vols["cpu"].float(), rtol=0, atol=2e-2)
+        cpu_dets, cpu_keep = runs["cpu"].stages["detect"](vols["cpu"])
+        gpu_dets, gpu_keep = runs["cuda"].stages["detect"](
+            vols["cpu"].to(cuda))
+        assert torch.isfinite(gpu_dets).all()
+        torch.testing.assert_close(gpu_keep.cpu(), cpu_keep)

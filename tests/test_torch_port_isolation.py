@@ -1,0 +1,89 @@
+"""The port stays separate from the JAX package and from JAX itself, and
+no entry point falls back to the CPU on its own."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "frlw_evd_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "frlw_evd_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_modules():
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(_port_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without device=, the pipeline asks for CUDA and raises where there
+    is none, instead of quietly running the plain twins on the CPU."""
+    from frlw_evd_tpu_torch import pipeline
+    from frlw_evd_tpu_torch.models import build_detector
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_detector(2, stem="bfm", in_channels=(16, 16, 16),
+                           stem_out_channels=8, head_width=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.make_pipeline_kernel(model, (60, 72), (64, 96))
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.new_state(2, (60, 72))
+
+
+def test_kernel_wrappers_take_no_other_device():
+    """A tensor that is not on the CPU never reaches a plain twin."""
+    from frlw_evd_tpu_torch.encode import scatter_cnt_tsum, taf_update_leaky
+
+    ev = torch.zeros(2, 8, 4, device="meta")
+    nv = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        scatter_cnt_tsum(ev, nv, height=4, width=4)
+    st = torch.zeros(2, 4, 64, device="meta")
+    cnt = torch.zeros(2, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        taf_update_leaky(st, cnt, cnt, nv, height=4, width=4)
