@@ -1,12 +1,24 @@
-// Kernel B2: fused TAF queue update + leaky transform on the folded state.
+// Kernels B2 and B3: fused TAF queue update + leaky transform, on the folded
+// full-resolution state (B2) and on the patchified quarter-resolution state
+// of the 1 Mpx path (B3). Both launch the one kernel body below.
 //
-// Replaces frlw_evd_tpu/encode/pallas_update.py::_update_kernel (reached
+// B2 replaces frlw_evd_tpu/encode/pallas_update.py::_update_kernel (reached
 // through taf_update_leaky). The TPU pipeline first broadcast the per-cell
 // mean into a (B, H, W*2K) bf16 plane with jnp.tile and then ran one
-// full-lane pass; here each thread owns one pixel, reads its two cells'
-// count and t-sum straight from kernel B1's planes and forms the mean in
-// registers, so the tiled plane (about 299 MB per GEN1 window batch) never
-// exists.
+// full-lane pass; here a thread reads its pixel's two cells' count and t-sum
+// straight from kernel B1's planes and forms the mean in registers, so the
+// tiled plane (about 299 MB per GEN1 window batch) never exists.
+//
+// B3 replaces ::_update_kernel_raw (reached through taf_update_leaky_raw).
+// Its state is the patchified queue (B, H/2, (W/2)*64): per
+// quarter-resolution pixel, 4 subpixel blocks (s = (x&1)*2 + (y&1)) of 16
+// queue positions, and its counts and t-sums come from kernel B1 in the p64
+// order, cell pix*8 + s*2 + p. Read as the folded queue of a (H/2, (W/2)*4)
+// grid with 2K = 16, each subpixel block is one B2 pixel and its two cells
+// are that pixel's cells, so B3 is B2 at that geometry (the JAX package does
+// the same, pallas_update.py:388-389). The TPU kernel read the scatter's raw
+// (R, 256) lanes and broadcast each cell to its 8 channels with a 0/1
+// expansion matmul because it has no gather; a thread here reads its cells.
 //
 // Per pixel of stream b, with C = 2K queue positions (c = 2 * age + p):
 //   tm[p] = bf16(tsum[p] / (cnt[p] + 1e-8))   (bf16 rounding as the TPU
@@ -15,13 +27,20 @@
 //   else if cnt[c % 2] > 0: upd[c] = c < 2 ? tm[c] : state[c - 2] - 1
 //   else:                   upd[c] = state[c] - 1
 //   vol[c] = bf16(max(0, 1 - log1p(-upd[c]) / 8.7))
-// The state is updated IN PLACE (the TPU call aliases it the same way): a
-// thread reads its pixel's C values before it writes them back.
 //
 // Bound: bytes. At GEN1 B = 128: 597.7 MB state read + 597.7 MB written +
-// 298.8 MB of volume + 149.4 MB of count/t-sum planes = 1.64 GB. Each
-// thread moves its pixel with 16-byte vector loads and stores. No fast-math:
-// log1pf and the division are the IEEE-accurate library forms.
+// 298.8 MB of volume + 149.4 MB of count/t-sum planes = 1.64 GB; at gen4
+// B = 128, 512x640: 2.684 GB of state read and written, 1.342 GB of volume,
+// 0.671 GB of count/t-sum planes. One thread per float4 of state (4 queue
+// positions), so a warp moves 512 contiguous bytes of state with each load
+// and store and 256 of volume (8 B a thread); a thread per pixel ran 10-13%
+// slower at both shapes (PERF.md). The two older positions c0-2, c0-1 that
+// a quad shifts in come from the neighbouring lane by warp shuffle, read
+// before any lane writes, so the in-place update (the TPU call aliases the
+// state the same way) is safe; a quad with c0 = 0 takes the new mean and
+// needs no neighbour, and lane 0 of every warp is one, since the C/4 quads
+// of a pixel divide 32. No fast-math: log1pf and the division are the
+// IEEE-accurate library forms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,57 +65,45 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 template <int C>
-__global__ void taf_update_leaky_kernel(float* __restrict__ state,
+__global__ void taf_update_leaky_kernel(float4* __restrict__ state,
                                         const float2* __restrict__ cnt,
                                         const float2* __restrict__ tsum,
                                         const int32_t* __restrict__ any_ev,
-                                        uint4* __restrict__ vol,
-                                        int64_t n_pix, int64_t pix_per_stream) {
-  static_assert(C % 8 == 0, "C must be a multiple of 8 for 16-byte stores");
-  const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= n_pix) return;
+                                        uint2* __restrict__ vol,
+                                        int64_t n_quads,
+                                        int64_t quads_per_stream) {
+  constexpr int Q = C / 4;  // quads per pixel
+  static_assert(C == 8 || C == 16, "a pixel's quads must divide a warp");
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n_quads;
+  const float4 v = active ? state[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  // every lane takes part in the shuffles, inactive tail lanes included
+  const float prev_z = __shfl_up_sync(0xffffffffu, v.z, 1);
+  const float prev_w = __shfl_up_sync(0xffffffffu, v.w, 1);
+  if (!active) return;
 
-  float4* sp = reinterpret_cast<float4*>(state) + pix * (C / 4);
-  float s[C];
-#pragma unroll
-  for (int q = 0; q < C / 4; ++q) {
-    const float4 v = sp[q];
-    s[4 * q] = v.x;
-    s[4 * q + 1] = v.y;
-    s[4 * q + 2] = v.z;
-    s[4 * q + 3] = v.w;
-  }
-
-  float u[C];
-  if (any_ev[pix / pix_per_stream] != 0) {
-    const float2 c = cnt[pix];
-    const float2 ts = tsum[pix];
+  const int c0 = (int)(i % Q) * 4;  // first queue position of the quad
+  const float s[4] = {v.x, v.y, v.z, v.w};
+  float u[4];
+  if (any_ev[i / quads_per_stream] != 0) {
+    const float2 c = cnt[i / Q];  // the pixel's two cells
+    const float2 ts = tsum[i / Q];
     const bool has[2] = {c.x > 0.0f, c.y > 0.0f};
     const float tm[2] = {bf16_round(ts.x / (c.x + 1e-8f)),
                          bf16_round(ts.y / (c.y + 1e-8f))};
+    const float older[4] = {prev_z, prev_w, v.x, v.y};  // state[c - 2]
 #pragma unroll
-    for (int j = 0; j < C; ++j) {
+    for (int j = 0; j < 4; ++j) {
       const int p = j & 1;
-      u[j] = !has[p] ? s[j] - 1.0f : (j < 2 ? tm[p] : s[j - 2] - 1.0f);
+      u[j] = !has[p] ? s[j] - 1.0f : (c0 + j < 2 ? tm[p] : older[j] - 1.0f);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < C; ++j) u[j] = s[j];
+    for (int j = 0; j < 4; ++j) u[j] = s[j];
   }
-
-#pragma unroll
-  for (int q = 0; q < C / 4; ++q)
-    sp[q] = make_float4(u[4 * q], u[4 * q + 1], u[4 * q + 2], u[4 * q + 3]);
-
-  uint4* vp = vol + pix * (C / 8);
-#pragma unroll
-  for (int q = 0; q < C / 8; ++q) {
-    const float* w = u + 8 * q;
-    vp[q] = make_uint4(pack_bf16x2(leaky(w[0]), leaky(w[1])),
-                       pack_bf16x2(leaky(w[2]), leaky(w[3])),
-                       pack_bf16x2(leaky(w[4]), leaky(w[5])),
-                       pack_bf16x2(leaky(w[6]), leaky(w[7])));
-  }
+  state[i] = make_float4(u[0], u[1], u[2], u[3]);
+  vol[i] = make_uint2(pack_bf16x2(leaky(u[0]), leaky(u[1])),
+                      pack_bf16x2(leaky(u[2]), leaky(u[3])));
 }
 
 template <int C>
@@ -104,10 +111,11 @@ void launch(void* state, const void* cnt, const void* tsum, const void* any_ev,
             void* vol, int64_t n_pix, int64_t pix_per_stream,
             cudaStream_t stream) {
   const int threads = 256;
-  const unsigned blocks = (unsigned)((n_pix + threads - 1) / threads);
+  const int64_t n_quads = n_pix * (C / 4);
+  const unsigned blocks = (unsigned)((n_quads + threads - 1) / threads);
   taf_update_leaky_kernel<C><<<blocks, threads, 0, stream>>>(
-      (float*)state, (const float2*)cnt, (const float2*)tsum,
-      (const int32_t*)any_ev, (uint4*)vol, n_pix, pix_per_stream);
+      (float4*)state, (const float2*)cnt, (const float2*)tsum,
+      (const int32_t*)any_ev, (uint2*)vol, n_quads, pix_per_stream * (C / 4));
 }
 
 }  // namespace
@@ -130,5 +138,21 @@ extern "C" int taf_update_leaky(void* state, const void* cnt, const void* tsum,
       return (int)cudaErrorInvalidValue;
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// state (B, H/2, (W/2)*64) f32 p64 queue, updated in place; cnt, tsum
+// (B, H*W*2) f32 in B1's p64 order; any_ev (B,) i32; vol (B, H/2, (W/2)*64)
+// bf16 out. H2 = H/2, W2 = W/2 quarter-resolution pixels per stream; each
+// has 4 subpixel blocks of 2K = 16, the pixels of B2's body.
+extern "C" int taf_update_leaky_raw(void* state, const void* cnt,
+                                    const void* tsum, const void* any_ev,
+                                    void* vol, int B, int H2, int W2,
+                                    void* stream) {
+  const int64_t blocks_per_stream = (int64_t)H2 * W2 * 4;
+  const int64_t n_blocks = (int64_t)B * blocks_per_stream;
+  if (n_blocks > 0)
+    launch<16>(state, cnt, tsum, any_ev, vol, n_blocks, blocks_per_stream,
+               (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("scatter_hist", "taf_update")
+SOURCES = ("scatter_hist", "taf_update", "bfm_chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +48,31 @@ def so_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> set[Path]:
+    """csrc/<name>.cu and every csrc header it includes, transitively."""
+    seen: set[Path] = set()
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            header = path.parent / inc
+            if header.exists():
+                todo.append(header)
+    return seen
+
+
 def _stale(name: str) -> bool:
     so = so_path(name)
-    return (not so.exists()
-            or so.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not so.exists():
+        return True
+    built = so.stat().st_mtime
+    return any(built < src.stat().st_mtime for src in _inputs(name))
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -156,7 +156,8 @@ def space_to_depth_patches(x: torch.Tensor) -> torch.Tensor:
 
 
 class Focus(nn.Module):
-    """Space-to-depth stem (blocks.py:327), as the fused 6x6 stride-2 conv."""
+    """Space-to-depth stem (blocks.py:327), as the fused 6x6 stride-2 conv;
+    takes the NHWC (N, H, W, C) volume."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
                  act: str = "silu"):
@@ -167,4 +168,4 @@ class Focus(nn.Module):
                              patchify_fused=True)
 
     def forward(self, x):
-        return self.conv(x)
+        return self.conv(x.permute(0, 3, 1, 2))

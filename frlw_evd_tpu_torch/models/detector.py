@@ -1,9 +1,12 @@
 """Composite detector: stem + backbone → neck → head (counterpart of
 frlw_evd_tpu/models/detector.py), for the AED family at eval.
 
-`EventDetector` takes the JAX layout at its boundary, an NHWC volume
-(N, H, W, 2K), and returns per-level NHWC head maps; inside it runs NCHW
-(channels_last in memory when the input is a contiguous NHWC tensor).
+`EventDetector` takes the JAX layout at its boundary and returns per-level
+NHWC head maps; inside it runs NCHW (channels_last in memory when the input
+is a contiguous NHWC tensor). The stem owns the input layout: an NHWC
+volume (N, H, W, 2K) for `focus` and `bfm`, the patchified (N, H/2, W/2,
+4*2K) for the p64 stems, and its folded form (N, H/2, (W/2)*64) for
+`bfm_folded`.
 """
 
 from __future__ import annotations
@@ -19,9 +22,16 @@ from .darknet import Darknet
 from .heads import (YOLOXHead, decode_outputs, flatten_level_outputs,
                     level_grids)
 from .pafpn import YOLOPAFPN
-from .stems import BinsFusionModule, WeightNormConv1x1
+from .stems import (BinsFusionModule, BinsFusionModuleFolded,
+                    BinsFusionModulePatched, BinsFusionModulePatchedKernel,
+                    FocusPatched, PadKernelConv2d, TiledConv1x1,
+                    WeightNormConv1x1)
 
-_STEMS = {"focus": Focus, "bfm": BinsFusionModule}
+# the p64 variants have the parameters of focus / bfm (detector.py:93-106)
+_STEMS = {"focus": Focus, "bfm": BinsFusionModule, "focus_p64": FocusPatched,
+          "bfm_p64": BinsFusionModulePatched,
+          "bfm_p64_kernel": BinsFusionModulePatchedKernel,
+          "bfm_folded": BinsFusionModuleFolded}
 
 
 class EventDetector(nn.Module):
@@ -34,8 +44,9 @@ class EventDetector(nn.Module):
         self.head = head
 
     def forward(self, x):
-        """x: (N, H, W, C) volume → [(N, h, w, 4+1+num_classes)] per level."""
-        feats = self.backbone(x.permute(0, 3, 1, 2).to(self.dtype))
+        """x: the stem's input volume → [(N, h, w, 4+1+num_classes)] per
+        level."""
+        feats = self.backbone(x.to(self.dtype))
         return self.head(self.neck(feats))
 
     @property
@@ -50,7 +61,8 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
     bias -log((1-p)/p) on the cls and obj predictors (heads.py:141)."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, PatchFusedConv2d)):
+            if isinstance(mod, (nn.Conv2d, PatchFusedConv2d, TiledConv1x1,
+                                PadKernelConv2d)):
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                    generator=generator)
@@ -77,7 +89,8 @@ def build_detector(num_classes: int, *, family: str = "aed",
                    head_width: int = 256, input_channels: int = 16,
                    generator: torch.Generator | None = None) -> EventDetector:
     """AED detector (detector.py:109-143): Darknet-21 + YOLOPAFPN +
-    YOLOXHead. stem: 'bfm' or 'focus'. input_channels is the volume's 2K.
+    YOLOXHead. stem: one of _STEMS. input_channels is the volume's 2K (per
+    subpixel block for the p64 stems).
     Parameters are initialised from `generator` (a fresh seed-0 generator
     when None); the model is in eval mode, on the CPU, in f32."""
     if family != "aed":

@@ -1,15 +1,19 @@
-"""Streaming GEN1 TAF-K8 → AED serving path (counterpart of bench.py's
-make_pipeline_kernel and _detect_body).
+"""Streaming TAF-K8 → AED serving paths (counterpart of bench.py's
+make_pipeline_kernel, make_pipeline_p64 and _detect_body).
 
 Per 10 ms bin, for B parallel streams:
   encode_transform(state_f, xytp, n_valid):
-      kernel B1 histogram → kernel B2 queue update + leaky (state in place)
-      → nearest resize of the (B, H, W, 2K) bf16 volume to the input size
+      GEN1 (`make_pipeline_kernel`): kernel B1 histogram → kernel B2 queue
+      update + leaky on the folded queue (state in place) → nearest resize
+      of the (B, H, W, 2K) bf16 volume to the input size;
+      1 Mpx (`make_pipeline_p64`): B1 in the p64 cell order → kernel B3 on
+      the patchified queue; the volume is already space-to-depth'd for a
+      p64 stem (folded (B, H/2, (W/2)*64) for `bfm_folded`), no resize;
   detect(vol):
       AED forward in the serving dtype → f32 decode → conf 0.3, top-100,
       NMS 0.6 → (dets (B, 100, 6), keep (B, 100))
 
-`make_pipeline_kernel` returns `run_step(state, xytp, n_valid) ->
+Each make_pipeline_* function returns `run_step(state, xytp, n_valid) ->
 (state, (dets, keep))` with the two stages under `run_step.stages`, as
 bench.py's `_attach_stages` does. Entry points run on the card unless the
 caller passes device="cpu", which runs the kernels' plain twins.
@@ -20,9 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .encode.update import init_state, taf_stream_step_kernel
+from .encode.update import (init_state, p64_init_state,
+                            taf_stream_step_kernel,
+                            taf_stream_step_kernel_p64)
 from .models.detector import EventDetector, eval_decode
 from .models.postprocess import postprocess_batch
+from .models.stems import BinsFusionModuleFolded
 
 K = 8
 STRIDES = (8, 16, 32)
@@ -57,28 +64,20 @@ def nearest_resize(vol, ys, xs):
     return vol.index_select(1, ys).index_select(2, xs)
 
 
-def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw, *,
-                         device="cuda", dtype=torch.bfloat16):
-    """Folded-state serving pipeline at any geometry.
-
-    `model` is moved to `device` and cast IN PLACE to the serving `dtype`:
+def _serving_model(model: EventDetector, device, dtype) -> torch.device:
+    """Move `model` to `device` and cast it IN PLACE to the serving `dtype`:
     every float parameter and buffer, BatchNorm running statistics
-    included (bench.py:856-858). On the card it runs channels_last. The
-    head outputs are decoded in f32 (bench.py:170)."""
+    included (bench.py:856-858). On the card it runs channels_last."""
     dev = resolve_device(device)
     model.to(device=dev, dtype=dtype).eval()
     if dev.type == "cuda":
         model.to(memory_format=torch.channels_last)
-    h, w = sensor_hw
-    ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev)
+    return dev
 
-    def encode_transform(state_f, xytp, n_valid):
-        state_f, vol = taf_stream_step_kernel(state_f, xytp, n_valid,
-                                              height=h, width=w)
-        if tuple(input_hw) != tuple(sensor_hw):
-            vol = nearest_resize(vol, ys, xs)
-        return state_f, vol
 
+def _attach_stages(encode_transform, model: EventDetector):
+    """run_step with the encode_transform and detect stages; detect decodes
+    the head outputs in f32 (bench.py:170)."""
     @torch.inference_mode()
     def detect(vol):
         outs = [o.float() for o in model(vol)]
@@ -91,6 +90,46 @@ def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw, *,
 
     run_step.stages = {"encode_transform": encode_transform, "detect": detect}
     return run_step
+
+
+def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw, *,
+                         device="cuda", dtype=torch.bfloat16):
+    """Folded-state serving pipeline at any geometry (bench.py:254-276),
+    with a canonical-input stem (`focus`, `bfm`)."""
+    dev = _serving_model(model, device, dtype)
+    h, w = sensor_hw
+    ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev)
+
+    def encode_transform(state_f, xytp, n_valid):
+        state_f, vol = taf_stream_step_kernel(state_f, xytp, n_valid,
+                                              height=h, width=w)
+        if tuple(input_hw) != tuple(sensor_hw):
+            vol = nearest_resize(vol, ys, xs)
+        return state_f, vol
+
+    return _attach_stages(encode_transform, model)
+
+
+def make_pipeline_p64(model: EventDetector, sensor_hw, *, folded: bool,
+                      device="cuda", dtype=torch.bfloat16):
+    """Patchified-state serving pipeline (bench.py:209-229), the 1 Mpx
+    recipe: input == sensor, (W/2) % 16 == 0. The model's stem is a p64
+    one, `bfm_folded` when `folded` (the volume stays (B, H/2, (W/2)*64)),
+    else `bfm_p64_kernel`, `bfm_p64` or `focus_p64` on its (B, H/2, W/2, 64)
+    view; `folded` must agree with the stem."""
+    stem = type(model.backbone.stem).__name__
+    if folded != isinstance(model.backbone.stem, BinsFusionModuleFolded):
+        raise ValueError(f"make_pipeline_p64(folded={folded}) does not fit "
+                         f"the model's stem {stem}: folded=True goes with "
+                         f"bfm_folded only")
+    _serving_model(model, device, dtype)
+    h, w = sensor_hw
+
+    def encode_transform(state_f, xytp, n_valid):
+        return taf_stream_step_kernel_p64(state_f, xytp, n_valid, height=h,
+                                          width=w, fold_output=folded)
+
+    return _attach_stages(encode_transform, model)
 
 
 def spread_random_weights_(model: EventDetector, generator: torch.Generator,
@@ -111,10 +150,14 @@ def spread_random_weights_(model: EventDetector, generator: torch.Generator,
     return model
 
 
-def new_state(batch: int, sensor_hw, *, device="cuda") -> torch.Tensor:
-    """Fresh folded TAF-K8 queue for `batch` streams on `device`."""
+def new_state(batch: int, sensor_hw, *, p64: bool = False,
+              device="cuda") -> torch.Tensor:
+    """Fresh TAF-K8 queue for `batch` streams on `device`: folded
+    (B, H, W*2K) for make_pipeline_kernel, or patchified (B, H/2,
+    (W/2)*8K) for make_pipeline_p64 when `p64`."""
     h, w = sensor_hw
-    return init_state(batch, h, w, K, device=resolve_device(device))
+    make = p64_init_state if p64 else init_state
+    return make(batch, h, w, K, device=resolve_device(device))
 
 
 def synth_events(rng, steps, batch, e_per_bin, sensor_hw):

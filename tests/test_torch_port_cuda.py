@@ -6,8 +6,10 @@ no JAX, so on a machine without it they run with conftest.py left out:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: counts exact; t-sums within the f32 reordering bound
-cnt^2 * 2^-23 (atomics add in a run-dependent order); the update's state
-exact; volumes within one bf16 ulp (2^-8).
+cnt^2 * 2^-23 (atomics add in a run-dependent order); the updates' state
+exact; volumes within one bf16 ulp (2^-8); the BFM chain (B4, B7) within
+atol 1e-2 + rtol 1e-2 (a bf16-rounded intermediate may round the other way
+where the twin sums in another order), B4's pad channels exactly zero.
 """
 
 from __future__ import annotations
@@ -20,8 +22,14 @@ from frlw_evd_tpu_torch import pipeline
 from frlw_evd_tpu_torch.encode import (scatter_cnt_tsum,
                                        scatter_cnt_tsum_plain,
                                        taf_update_leaky,
-                                       taf_update_leaky_plain)
+                                       taf_update_leaky_plain,
+                                       taf_update_leaky_raw,
+                                       taf_update_leaky_raw_plain)
 from frlw_evd_tpu_torch.models import build_detector
+from frlw_evd_tpu_torch.models.stem_chain import (
+    bfm_chain_apply, bfm_chain_apply_folded, bfm_chain_apply_folded_plain,
+    bfm_chain_apply_plain)
+from frlw_evd_tpu_torch.models.stems import BinsFusionModuleFolded
 
 pytestmark = pytest.mark.cuda
 
@@ -45,29 +53,37 @@ def _events(B=4, E=4096, seed=0):
     return torch.from_numpy(ev[0]), torch.from_numpy(nv[0])
 
 
-def test_scatter_kernel_matches_twin(cuda):
+P64_SENSOR = (64, 96)
+
+
+@pytest.mark.parametrize("layout", ["folded", "p64"])
+def test_scatter_kernel_matches_twin(cuda, layout):
     ev, nv = _events()
     ev, nv = ev.to(cuda), nv.to(cuda)
     before = scatter_cnt_tsum.launches
     cnt, tsum, anyv = scatter_cnt_tsum(ev, nv, height=SENSOR[0],
-                                       width=SENSOR[1])
+                                       width=SENSOR[1], layout=layout)
     torch.cuda.synchronize()
     assert scatter_cnt_tsum.launches == before + 1
     p_cnt, p_tsum, p_any = scatter_cnt_tsum_plain(ev, nv, height=SENSOR[0],
-                                                  width=SENSOR[1])
+                                                  width=SENSOR[1],
+                                                  layout=layout)
     torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
     assert (anyv == p_any).all()
     assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
 
 
-def test_update_kernel_matches_twin(cuda):
+@pytest.mark.parametrize("C", [16, 8])
+def test_update_kernel_matches_twin(cuda, C):
+    """B2 at 2K = 16 and 8 on 3 streams, so the last block of threads has
+    a tail of inactive lanes; stream 2 frozen."""
     ev, nv = _events()
     nv[2] = 0                                 # frozen stream
-    ev, nv = ev.to(cuda), nv.to(cuda)
+    ev, nv = ev[:3].contiguous().to(cuda), nv[:3].to(cuda)
     H, W = SENSOR
     cnt, tsum, anyv = scatter_cnt_tsum_plain(ev, nv, height=H, width=W)
     g = torch.Generator(device=cuda).manual_seed(0)
-    state = -40.0 * torch.rand(4, H, W * 16, device=cuda, generator=g)
+    state = -40.0 * torch.rand(3, H, W * C, device=cuda, generator=g)
     plain_state = state.clone()
     frozen = state[2].clone()
     before = taf_update_leaky.launches
@@ -80,6 +96,62 @@ def test_update_kernel_matches_twin(cuda):
     torch.testing.assert_close(state[2], frozen, rtol=0, atol=0)
     torch.testing.assert_close(vol.float(), p_vol.float(), rtol=0,
                                atol=2.0 ** -8)
+
+
+def test_raw_update_kernel_matches_twin(cuda):
+    """B3 on the p64 queue from B1's p64 planes, stream 2 frozen."""
+    H, W = P64_SENSOR
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(1), 1, 4,
+                                          4096, P64_SENSOR)
+    ev, nv = torch.from_numpy(ev[0]).to(cuda), torch.from_numpy(nv[0])
+    nv[2] = 0
+    nv = nv.to(cuda)
+    cnt, tsum, anyv = scatter_cnt_tsum_plain(ev, nv, height=H, width=W,
+                                             layout="p64")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = -40.0 * torch.rand(4, H // 2, W // 2 * 64, device=cuda,
+                               generator=g)
+    plain_state = state.clone()
+    frozen = state[2].clone()
+    before = taf_update_leaky_raw.launches
+    _, vol = taf_update_leaky_raw(state, cnt, tsum, anyv, height=H, width=W)
+    _, p_vol = taf_update_leaky_raw_plain(plain_state, cnt, tsum, anyv,
+                                          height=H, width=W)
+    torch.cuda.synchronize()
+    assert taf_update_leaky_raw.launches == before + 1
+    torch.testing.assert_close(state, plain_state, rtol=0, atol=0)
+    torch.testing.assert_close(state[2], frozen, rtol=0, atol=0)
+    torch.testing.assert_close(vol.float(), p_vol.float(), rtol=0,
+                               atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("folded", [True, False], ids=["B4", "B7"])
+def test_chain_kernels_match_twins(cuda, folded):
+    stem = BinsFusionModuleFolded(16, 8)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in stem.named_parameters():
+            p.normal_(0.1 if name.endswith("bias") else 0.0, 0.3,
+                      generator=g)
+    params = {k: v.to(cuda) for k, v in stem.chain_params().items()}
+    vol = torch.rand(3, 8, 16, 64, generator=g).to(cuda, torch.bfloat16)
+    if folded:
+        fn, plain = bfm_chain_apply_folded, bfm_chain_apply_folded_plain
+        args, kw = (vol.view(3, 8, 16 * 64), params), dict(width=16)
+    else:
+        fn, plain = bfm_chain_apply, bfm_chain_apply_plain
+        args, kw = (vol, params), {}
+    before = fn.launches
+    out = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    if folded:
+        pad = out.view(3, 8, 16, 64)[..., 48:]
+        assert torch.equal(pad, torch.zeros_like(pad))
 
 
 def test_wrappers_raise_on_misaligned_events(cuda):

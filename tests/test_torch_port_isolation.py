@@ -73,17 +73,51 @@ def test_entry_points_default_to_the_card(monkeypatch):
         pipeline.make_pipeline_kernel(model, (60, 72), (64, 96))
     with pytest.raises(RuntimeError, match="cuda"):
         pipeline.new_state(2, (60, 72))
+    p64_model = build_detector(2, stem="bfm_folded", in_channels=(16, 16, 16),
+                               stem_out_channels=8, head_width=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.make_pipeline_p64(p64_model, (64, 96), folded=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.new_state(2, (64, 96), p64=True)
 
 
 def test_kernel_wrappers_take_no_other_device():
     """A tensor that is not on the CPU never reaches a plain twin."""
-    from frlw_evd_tpu_torch.encode import scatter_cnt_tsum, taf_update_leaky
+    from frlw_evd_tpu_torch.encode import (scatter_cnt_tsum, taf_update_leaky,
+                                           taf_update_leaky_raw)
+    from frlw_evd_tpu_torch.models.stem_chain import (bfm_chain_apply,
+                                                      bfm_chain_apply_folded)
 
     ev = torch.zeros(2, 8, 4, device="meta")
     nv = torch.zeros(2, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        scatter_cnt_tsum(ev, nv, height=4, width=4)
+    for layout in ("folded", "p64"):
+        with pytest.raises(ValueError, match="unsupported device"):
+            scatter_cnt_tsum(ev, nv, height=4, width=4, layout=layout)
     st = torch.zeros(2, 4, 64, device="meta")
     cnt = torch.zeros(2, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         taf_update_leaky(st, cnt, cnt, nv, height=4, width=4)
+    st64 = torch.zeros(2, 2, 16 * 64, device="meta")
+    cnt64 = torch.zeros(2, 4 * 32 * 2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        taf_update_leaky_raw(st64, cnt64, cnt64, nv, height=4, width=32)
+    vol = torch.zeros(2, 2, 16, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bfm_chain_apply(vol, {})
+    with pytest.raises(ValueError, match="unsupported device"):
+        bfm_chain_apply_folded(vol.view(2, 2, 16 * 64), {}, width=16)
+
+
+@pytest.mark.parametrize("stem,folded", [("bfm_folded", False),
+                                         ("bfm_p64_kernel", True)])
+def test_p64_pipeline_refuses_a_fold_the_stem_does_not_take(stem, folded):
+    """`folded` must agree with the stem: the folded volume goes to
+    bfm_folded only, the NHWC view to the other p64 stems."""
+    from frlw_evd_tpu_torch import pipeline
+    from frlw_evd_tpu_torch.models import build_detector
+
+    model = build_detector(2, stem=stem, in_channels=(16, 16, 16),
+                           stem_out_channels=8, head_width=16)
+    with pytest.raises(ValueError, match="does not fit the model's stem"):
+        pipeline.make_pipeline_p64(model, (64, 96), folded=folded,
+                                   device="cpu")
