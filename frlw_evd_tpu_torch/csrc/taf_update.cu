@@ -1,6 +1,7 @@
-// Kernels B2 and B3: fused TAF queue update + leaky transform, on the folded
-// full-resolution state (B2) and on the patchified quarter-resolution state
-// of the 1 Mpx path (B3). Both launch the one kernel body below.
+// Kernels B2, B3 and B5: fused TAF queue update + leaky transform, on the
+// folded full-resolution state (B2) and on the patchified quarter-resolution
+// state of the 1 Mpx path (B3 and B5). All three launch the one kernel body
+// below.
 //
 // B2 replaces frlw_evd_tpu/encode/pallas_update.py::_update_kernel (reached
 // through taf_update_leaky). The TPU pipeline first broadcast the per-cell
@@ -20,6 +21,14 @@
 // (R, 256) lanes and broadcast each cell to its 8 channels with a 0/1
 // expansion matmul because it has no gather; a thread here reads its cells.
 //
+// B5 replaces ::_update_kernel_v2 (reached through taf_update_leaky_v2), the
+// update of the p64 step's precise and sorted paths. The TPU kernel reads
+// the histogram as (B, H/2, (W/2)*8) count and t-sum planes in (pixel,
+// subpixel, polarity) order and broadcasts each cell to its channels with
+// the same 0/1 expansion matmul. Those planes hold the same bytes in the
+// same order as B1's p64-order planes, so B5 is B3 over other producers'
+// planes: its own C entry, the same launch.
+//
 // Per pixel of stream b, with C = 2K queue positions (c = 2 * age + p):
 //   tm[p] = bf16(tsum[p] / (cnt[p] + 1e-8))   (bf16 rounding as the TPU
 //           state stores it; state parity depends on it)
@@ -30,10 +39,11 @@
 //
 // Bound: bytes. At GEN1 B = 128: 597.7 MB state read + 597.7 MB written +
 // 298.8 MB of volume + 149.4 MB of count/t-sum planes = 1.64 GB; at gen4
-// B = 128, 512x640: 2.684 GB of state read and written, 1.342 GB of volume,
-// 0.671 GB of count/t-sum planes. One thread per float4 of state (4 queue
-// positions), so a warp moves 512 contiguous bytes of state with each load
-// and store and 256 of volume (8 B a thread); a thread per pixel ran 10-13%
+// B = 128, 512x640 (B3 and B5 alike): 2.684 GB of state read and
+// written, 1.342 GB of volume, 0.671 GB of count/t-sum planes. One thread
+// per float4 of state (4 queue positions), so a warp moves 512 contiguous
+// bytes of state with each load and store and 256 of volume (8 B a
+// thread); a thread per pixel ran 10-13%
 // slower at both shapes (PERF.md). The two older positions c0-2, c0-1 that
 // a quad shifts in come from the neighbouring lane by warp shuffle, read
 // before any lane writes, so the in-place update (the TPU call aliases the
@@ -153,6 +163,22 @@ extern "C" int taf_update_leaky_raw(void* state, const void* cnt,
   const int64_t n_blocks = (int64_t)B * blocks_per_stream;
   if (n_blocks > 0)
     launch<16>(state, cnt, tsum, any_ev, vol, n_blocks, blocks_per_stream,
+               (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// state (B, H2, W2*64) f32 p64 queue, updated in place; cnt_r, tsum_r
+// (B, H2, W2*8) f32 in (pixel, subpixel, polarity) order; any_ev (B,) i32;
+// vol (B, H2, W2*64) bf16 out. The same launch as taf_update_leaky_raw: a
+// quarter-resolution pixel's 8 cells are its 4 subpixel blocks' 2 cells.
+extern "C" int taf_update_leaky_v2(void* state, const void* cnt_r,
+                                   const void* tsum_r, const void* any_ev,
+                                   void* vol, int B, int H2, int W2,
+                                   void* stream) {
+  const int64_t blocks_per_stream = (int64_t)H2 * W2 * 4;
+  const int64_t n_blocks = (int64_t)B * blocks_per_stream;
+  if (n_blocks > 0)
+    launch<16>(state, cnt_r, tsum_r, any_ev, vol, n_blocks, blocks_per_stream,
                (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

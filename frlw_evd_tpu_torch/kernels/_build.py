@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, load and call them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface (pointers and the CUDA
 stream as `void*`, sizes as `int`; every function returns
@@ -21,10 +21,13 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("scatter_hist", "taf_update", "bfm_chain")
+SOURCES = ("scatter_hist", "scatter_sorted", "scatter_dense", "taf_update",
+           "bfm_chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,3 +121,15 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code (cudaGetLastError)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def launch(name: str, entry: str, tensors, ints, device) -> None:
+    """Call the C entry `entry` of csrc/<name>.cu with the tensors' data
+    pointers, then the ints, then `device`'s current CUDA stream; raise if
+    it returns a CUDA error."""
+    fn = getattr(load(name), entry)
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(fn(*(t.data_ptr() for t in tensors), *ints, stream), entry)

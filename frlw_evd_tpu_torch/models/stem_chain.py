@@ -21,8 +21,6 @@ functions take the canonical params subtree. CUDA tensors launch
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -145,14 +143,8 @@ def _launch(entry: str, vol, params, out, B, H2, W2):
         raise ValueError(f"{entry}: the volume must be contiguous and "
                          f"16-byte aligned")
     weights = _pack(chain_weights(params), vol.device)
-    lib = _build.load("bfm_chain")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(vol.device).cuda_stream
-    rc = fn(vol.data_ptr(), weights.data_ptr(), out.data_ptr(), B, H2, W2,
-            stream)
-    _build.check(rc, entry)
+    _build.launch("bfm_chain", entry, (vol, weights, out), (B, H2, W2),
+                  vol.device)
     return out
 
 

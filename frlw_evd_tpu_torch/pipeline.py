@@ -9,6 +9,8 @@ Per 10 ms bin, for B parallel streams:
       1 Mpx (`make_pipeline_p64`): B1 in the p64 cell order → kernel B3 on
       the patchified queue; the volume is already space-to-depth'd for a
       p64 stem (folded (B, H/2, (W/2)*64) for `bfm_folded`), no resize;
+      with scatter="sorted", the plain sorted histogram and kernel B5 (on
+      the GEN1 path, that histogram and B2);
   detect(vol):
       AED forward in the serving dtype → f32 decode → conf 0.3, top-100,
       NMS 0.6 → (dets (B, 100, 6), keep (B, 100))
@@ -92,17 +94,20 @@ def _attach_stages(encode_transform, model: EventDetector):
     return run_step
 
 
-def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw, *,
-                         device="cuda", dtype=torch.bfloat16):
+def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw,
+                         scatter: str = "pallas", *, device="cuda",
+                         dtype=torch.bfloat16):
     """Folded-state serving pipeline at any geometry (bench.py:254-276),
-    with a canonical-input stem (`focus`, `bfm`)."""
+    with a canonical-input stem (`focus`, `bfm`). `scatter` ("pallas" or
+    "sorted") goes to the step with precise=False, as bench.py passes it."""
     dev = _serving_model(model, device, dtype)
     h, w = sensor_hw
     ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev)
 
     def encode_transform(state_f, xytp, n_valid):
         state_f, vol = taf_stream_step_kernel(state_f, xytp, n_valid,
-                                              height=h, width=w)
+                                              height=h, width=w,
+                                              scatter=scatter, precise=False)
         if tuple(input_hw) != tuple(sensor_hw):
             vol = nearest_resize(vol, ys, xs)
         return state_f, vol
@@ -110,13 +115,15 @@ def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw, *,
     return _attach_stages(encode_transform, model)
 
 
-def make_pipeline_p64(model: EventDetector, sensor_hw, *, folded: bool,
-                      device="cuda", dtype=torch.bfloat16):
+def make_pipeline_p64(model: EventDetector, sensor_hw,
+                      scatter: str = "pallas", *, folded: bool, device="cuda",
+                      dtype=torch.bfloat16):
     """Patchified-state serving pipeline (bench.py:209-229), the 1 Mpx
     recipe: input == sensor, (W/2) % 16 == 0. The model's stem is a p64
     one, `bfm_folded` when `folded` (the volume stays (B, H/2, (W/2)*64)),
     else `bfm_p64_kernel`, `bfm_p64` or `focus_p64` on its (B, H/2, W/2, 64)
-    view; `folded` must agree with the stem."""
+    view; `folded` must agree with the stem. `scatter` ("pallas" or
+    "sorted") goes to the step with precise=False, as bench.py passes it."""
     stem = type(model.backbone.stem).__name__
     if folded != isinstance(model.backbone.stem, BinsFusionModuleFolded):
         raise ValueError(f"make_pipeline_p64(folded={folded}) does not fit "
@@ -127,7 +134,8 @@ def make_pipeline_p64(model: EventDetector, sensor_hw, *, folded: bool,
 
     def encode_transform(state_f, xytp, n_valid):
         return taf_stream_step_kernel_p64(state_f, xytp, n_valid, height=h,
-                                          width=w, fold_output=folded)
+                                          width=w, scatter=scatter,
+                                          precise=False, fold_output=folded)
 
     return _attach_stages(encode_transform, model)
 

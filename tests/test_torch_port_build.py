@@ -52,3 +52,23 @@ def test_every_source_is_listed():
     """SOURCES names every csrc/*.cu, so build() compiles them all."""
     assert sorted(_build.SOURCES) == sorted(
         p.stem for p in _build.CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_every_listed_source_exists(name):
+    """Each name in SOURCES has its csrc/<name>.cu, with the C entries its
+    wrappers load."""
+    assert (_build.CSRC / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("name,entries", [
+    ("scatter_hist", ["scatter_cnt_tsum"]),
+    ("scatter_sorted", ["scatter_cnt_tsum_sorted_runs"]),
+    ("scatter_dense", ["scatter_cnt_tsum_dense"]),
+    ("taf_update", ["taf_update_leaky", "taf_update_leaky_raw",
+                    "taf_update_leaky_v2"]),
+    ("bfm_chain", ["bfm_chain_apply", "bfm_chain_apply_folded"])])
+def test_sources_define_the_entries_their_wrappers_call(name, entries):
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in text, f"{name}.cu: {entry}"

@@ -6,8 +6,10 @@ no JAX, so on a machine without it they run with conftest.py left out:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: counts exact; t-sums within the f32 reordering bound
-cnt^2 * 2^-23 (atomics add in a run-dependent order); the updates' state
-exact; volumes within one bf16 ulp (2^-8); the BFM chain (B4, B7) within
+cnt^2 * 2^-23 (atomics add in a run-dependent order; B6 sums each run in
+sorted order against the twin's f64 sum, cnt^2 * 2^-24, and repeats bit for
+bit); the updates' state exact; volumes within one bf16 ulp (2^-8); B5
+equal to B3 on the same planes, bit for bit; the BFM chain (B4, B7) within
 atol 1e-2 + rtol 1e-2 (a bf16-rounded intermediate may round the other way
 where the twin sums in another order), B4's pad channels exactly zero.
 """
@@ -19,12 +21,13 @@ import pytest
 import torch
 
 from frlw_evd_tpu_torch import pipeline
-from frlw_evd_tpu_torch.encode import (scatter_cnt_tsum,
-                                       scatter_cnt_tsum_plain,
-                                       taf_update_leaky,
-                                       taf_update_leaky_plain,
-                                       taf_update_leaky_raw,
-                                       taf_update_leaky_raw_plain)
+from frlw_evd_tpu_torch.encode import (
+    scatter_cnt_tsum, scatter_cnt_tsum_pallas, scatter_cnt_tsum_pallas_plain,
+    scatter_cnt_tsum_pallas_sorted, scatter_cnt_tsum_pallas_sorted_plain,
+    scatter_cnt_tsum_plain, taf_update_leaky, taf_update_leaky_plain,
+    taf_update_leaky_raw, taf_update_leaky_raw_plain, taf_update_leaky_v2,
+    taf_update_leaky_v2_plain)
+from frlw_evd_tpu_torch.encode.scatter import event_cells
 from frlw_evd_tpu_torch.models import build_detector
 from frlw_evd_tpu_torch.models.stem_chain import (
     bfm_chain_apply, bfm_chain_apply_folded, bfm_chain_apply_folded_plain,
@@ -123,6 +126,80 @@ def test_raw_update_kernel_matches_twin(cuda):
     torch.testing.assert_close(state[2], frozen, rtol=0, atol=0)
     torch.testing.assert_close(vol.float(), p_vol.float(), rtol=0,
                                atol=2.0 ** -8)
+
+
+def _cells(cuda, layout):
+    """Cell indices, t - 1 and valid of skewed events with some out of
+    range, in one cell order, on the card."""
+    ev, nv = _events()
+    H, W = P64_SENSOR if layout == "p64" else SENSOR
+    ev[..., 0] = ev[..., 0] * (W / SENSOR[1])
+    ev[..., 1] = ev[..., 1] * (H / SENSOR[0])
+    idx, tv, valid = event_cells(ev.to(cuda), nv.to(cuda), H, W, layout)
+    return idx, tv, valid, H * W * 2
+
+
+@pytest.mark.parametrize("layout", ["folded", "p64"])
+def test_pair_sorted_scatter_matches_twin_and_repeats(cuda, layout):
+    """B6 against its twin, a one-cell stream included, and two launches
+    bitwise equal."""
+    idx, tv, valid, size = _cells(cuda, layout)
+    idx[3] = 1234                              # one long run
+    before = scatter_cnt_tsum_pallas_sorted.launches
+    cnt, tsum = scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
+    cnt2, tsum2 = scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
+    p_cnt, p_tsum = scatter_cnt_tsum_pallas_sorted_plain(idx, tv, valid, size)
+    torch.cuda.synchronize()
+    assert scatter_cnt_tsum_pallas_sorted.launches == before + 2
+    assert torch.equal(cnt, cnt2) and torch.equal(tsum, tsum2)
+    torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
+    assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -24).all()
+    assert int(p_cnt[3].max()) == int(valid[3].sum())
+
+
+def test_dense_scatter_matches_twin(cuda):
+    """B8 against its twin on the folded cells, with a size that is not a
+    multiple of the kernel's tile."""
+    idx, tv, valid, size = _cells(cuda, "folded")
+    before = scatter_cnt_tsum_pallas.launches
+    cnt, tsum = scatter_cnt_tsum_pallas(idx, tv, valid, size)
+    p_cnt, p_tsum = scatter_cnt_tsum_pallas_plain(idx, tv, valid, size)
+    torch.cuda.synchronize()
+    assert scatter_cnt_tsum_pallas.launches == before + 1
+    assert size % 6144
+    torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
+    assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
+
+
+def test_plane_update_kernel_matches_twin_and_b3(cuda):
+    """B5 against its twin, stream 2 frozen; and B5 on B1's p64 planes
+    equal to B3 on the same planes, bit for bit."""
+    H, W = P64_SENSOR
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(1), 1, 4,
+                                          4096, P64_SENSOR)
+    ev, nv = torch.from_numpy(ev[0]).to(cuda), torch.from_numpy(nv[0])
+    nv[2] = 0
+    cnt, tsum, anyv = scatter_cnt_tsum(ev, nv.to(cuda), height=H, width=W,
+                                       layout="p64")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = -40.0 * torch.rand(4, H // 2, W // 2 * 64, device=cuda,
+                               generator=g)
+    states = {k: state.clone() for k in ("v2", "plain", "raw")}
+    planes = (cnt.view(4, H // 2, -1), tsum.view(4, H // 2, -1), anyv)
+    hw = dict(height=H // 2, width=W // 2 * 4)
+    before = taf_update_leaky_v2.launches
+    _, vol = taf_update_leaky_v2(states["v2"], *planes, **hw)
+    _, p_vol = taf_update_leaky_v2_plain(states["plain"], *planes, **hw)
+    _, r_vol = taf_update_leaky_raw(states["raw"], cnt, tsum, anyv, height=H,
+                                    width=W)
+    torch.cuda.synchronize()
+    assert taf_update_leaky_v2.launches == before + 1
+    torch.testing.assert_close(states["v2"], states["plain"], rtol=0, atol=0)
+    torch.testing.assert_close(states["v2"][2], state[2], rtol=0, atol=0)
+    torch.testing.assert_close(vol.float(), p_vol.float(), rtol=0,
+                               atol=2.0 ** -8)
+    assert torch.equal(states["v2"], states["raw"]) and torch.equal(vol,
+                                                                    r_vol)
 
 
 @pytest.mark.parametrize("folded", [True, False], ids=["B4", "B7"])

@@ -84,7 +84,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_kernel_wrappers_take_no_other_device():
     """A tensor that is not on the CPU never reaches a plain twin."""
     from frlw_evd_tpu_torch.encode import (scatter_cnt_tsum, taf_update_leaky,
-                                           taf_update_leaky_raw)
+                                           taf_update_leaky_raw,
+                                           taf_update_leaky_v2)
     from frlw_evd_tpu_torch.models.stem_chain import (bfm_chain_apply,
                                                       bfm_chain_apply_folded)
 
@@ -101,11 +102,40 @@ def test_kernel_wrappers_take_no_other_device():
     cnt64 = torch.zeros(2, 4 * 32 * 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         taf_update_leaky_raw(st64, cnt64, cnt64, nv, height=4, width=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        taf_update_leaky_v2(st64, cnt64.view(2, 2, -1), cnt64.view(2, 2, -1),
+                            nv, height=2, width=64)
     vol = torch.zeros(2, 2, 16, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         bfm_chain_apply(vol, {})
     with pytest.raises(ValueError, match="unsupported device"):
         bfm_chain_apply_folded(vol.view(2, 2, 16 * 64), {}, width=16)
+
+
+@pytest.mark.parametrize("name", ["scatter_cnt_tsum_pallas_sorted",
+                                  "scatter_cnt_tsum_pallas"])
+def test_cell_histogram_kernels_take_no_other_device(name):
+    """Kernels B6 and B8 take cell indices; neither hands a tensor that is
+    not on the CPU to its twin."""
+    from frlw_evd_tpu_torch import encode
+
+    idx = torch.zeros(2, 8, dtype=torch.int32, device="meta")
+    t = torch.zeros(2, 8, device="meta")
+    valid = torch.zeros(2, 8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(encode, name)(idx, t, valid, 32)
+
+
+def test_csrc_sources_include_nothing_of_torch_or_jax():
+    """The kernels keep a plain C interface (pointers, ints, the stream),
+    so nvcc builds them in seconds without PyTorch's headers."""
+    for path in sorted((PKG / "csrc").glob("*.cu*")):
+        text = path.read_text()
+        for bad in ("torch/", "ATen/", "c10/", "pybind11", "jax", "xla"):
+            assert f"#include <{bad}" not in text and \
+                f'#include "{bad}' not in text, f"{path.name} includes {bad}"
+        assert path.suffix != ".cu" or 'extern "C"' in text, \
+            f"{path.name} has no C entry"
 
 
 @pytest.mark.parametrize("stem,folded", [("bfm_folded", False),
