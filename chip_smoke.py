@@ -9,9 +9,14 @@ Phases (any failure exits non-zero; no phase catches and continues):
      sources compiled in parallel;
   2. kernel B1 (scatter_cnt_tsum) against its plain twin at the full GEN1
      shape (B = 128 streams, E = 16384 event slots), uniform and skewed
-     events with bursty n_valid: counts exact, t-sums within the f32
-     reordering bound cnt^2 * 2^-23 (the kernel's atomics add in a
-     run-dependent order);
+     events with bursty n_valid and a one-cell set (every event of a stream
+     in one pixel and polarity): counts and any_ev exact, t-sums within
+     cnt^2 * 2^-23 of the twin's (B1's contract allows any order of adds;
+     the kernel sums exactly), every output cell written (the outputs land in
+     blocks poisoned with NaN); the cluster tiling printed; times on each
+     set beside index_add_, of the per-block-tile form, and the split of
+     the uniform time (no slot counted, slots read but none counted, the
+     planes' writes alone);
   3. kernel B2 (taf_update_leaky) against its twin at full shape with one
      frozen stream: state exact (the same f32 operations), volume within
      one bf16 ulp (2^-8, where log1pf rounds differently);
@@ -23,7 +28,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
   5. that slice on a small input against the same slice on the CPU (plain
      twins), f32 without TF32: states, volumes and keep masks agree;
   6. B1 in the p64 cell order against its twin at the full gen4 shape
-     (B = 128, E = 65536, 512x640), uniform and skewed, as in phase 2;
+     (B = 128, E = 65536, 512x640), uniform, skewed and one-cell, as in
+     phase 2;
   7. kernel B3 (taf_update_leaky_raw) against its twin at full gen4 shape
      with one frozen stream: state exact, volume within one bf16 ulp;
   8. kernels B4 (bfm_chain_apply_folded) and B7 (bfm_chain_apply) against
@@ -39,9 +45,11 @@ Phases (any failure exits non-zero; no phase catches and continues):
  11. the 1 Mpx slice on a small input against the same slice on the CPU,
      f32 without TF32 (see check_small_p64_against_cpu for the gates);
  12. kernel B6 (scatter_cnt_tsum_pallas_sorted) against its twin at the
-     full gen4 shape on the p64 cells of the uniform and skewed windows:
-     counts exact, t-sums within cnt^2 * 2^-24, two launches bitwise equal;
-     times with and without the sort, and of a one-cell set;
+     full gen4 shape on the p64 cells of the uniform and skewed windows and
+     of a one-cell set: counts exact, t-sums bitwise equal to the twin's,
+     two launches bitwise equal, every output cell written (poisoned
+     blocks); the cluster tiling printed; times on each set beside
+     index_add_, of the per-block-tile form, and phase 2's split;
  13. kernel B5 (taf_update_leaky_v2) against its twin at full gen4 shape
      with one frozen stream (state exact, volume within one bf16 ulp), and
      against B3 on the same B1 planes, bit for bit;
@@ -164,15 +172,71 @@ def index_add_ms(idx, tv, valid, size):
     return time_ms(library)
 
 
+def poison(*shapes):
+    """Fill blocks of the given (shape, dtype) sizes with NaN (-7 for
+    int32) and free them, so that the caching allocator hands them to the
+    next call's outputs: a cell the kernel leaves unwritten then shows.
+    Returns their addresses."""
+    blocks = [torch.full(shape, float("nan") if dtype == torch.float32
+                         else -7, dtype=dtype, device="cuda")
+              for shape, dtype in shapes]
+    torch.cuda.synchronize()
+    return {t.data_ptr() for t in blocks}
+
+
+def check_poisoned(name, outs, poisoned):
+    """The outputs took the poisoned blocks and hold no NaN."""
+    if not {t.data_ptr() for t in outs} <= poisoned:
+        raise SystemExit(f"{name}: the outputs did not take the poisoned "
+                         f"blocks, so the check would prove nothing")
+    if not all(bool(torch.isfinite(t).all()) for t in outs):
+        raise SystemExit(f"{name}: an output cell was left unwritten (NaN)")
+
+
+def plane_write_ms(B, P):
+    """The two (B, P) f32 planes written once with fill_: the store floor
+    of a histogram kernel on this card."""
+    cnt = torch.empty(B, P, device="cuda")
+    tsum = torch.empty_like(cnt)
+    return time_ms(lambda: (cnt.fill_(1.0), tsum.fill_(1.0)))
+
+
+def split_line(name, split, ms):
+    return (f"{name} split on the uniform set: no slot counted and none read "
+            f"{split['empty']:.3f} ms, every slot read and none counted "
+            f"{split['scan']:.3f} ms, all {ms:.3f} ms; the two planes' "
+            f"fill_ alone {split['planes']:.3f} ms")
+
+
+def one_cell_events(ev):
+    """Every event of each stream in one pixel and polarity."""
+    one = ev.clone()
+    one[..., 0], one[..., 1], one[..., 3] = 7.0, 5.0, 1.0
+    return one
+
+
 def check_scatter(enc, ev_sets, dev, rate, sensor, layout):
-    """Phases 2 and 6: B1 vs its twin in one cell order; times on the
-    uniform set."""
+    """Phases 2 and 6: B1 vs its twin in one cell order on the uniform,
+    skewed and one-cell sets, each call's outputs in blocks poisoned with
+    NaN; times of B1 and index_add_ on each set, of the per-block-tile form
+    (clusters of 1) on the uniform set."""
     H, W = sensor
     B = ev_sets["uniform"][0].shape[0]
+    P = H * W * 2
     kw = dict(height=H, width=W, layout=layout)
-    err = 0.0
-    for name, (ev, nv) in ev_sets.items():
+    plan = enc.scatter.tile_plan(P)
+    alone = enc.scatter.tile_plan(P, cluster=1)
+    log(f"B1 {layout} launch: {plan.describe(P, B)}")
+    log(f"B1 {layout} per-block tiles: {alone.describe(P, B)}")
+    sets = dict(ev_sets, one_cell=(one_cell_events(ev_sets["uniform"][0]),
+                                   ev_sets["uniform"][1]))
+    err, ms, library_ms = 0.0, {}, {}
+    for name, (ev, nv) in sets.items():
+        poisoned = poison(((B, P), torch.float32), ((B, P), torch.float32),
+                          ((B,), torch.int32))
         cnt, tsum, anyv = enc.scatter_cnt_tsum(ev, nv, **kw)
+        torch.cuda.synchronize()
+        check_poisoned(f"B1 {layout} {name}", (cnt, tsum, anyv), poisoned)
         p_cnt, p_tsum, p_any = enc.scatter_cnt_tsum_plain(ev, nv, **kw)
         torch.cuda.synchronize()
         if not torch.equal(cnt, p_cnt) or not torch.equal(anyv, p_any):
@@ -185,18 +249,35 @@ def check_scatter(enc, ev_sets, dev, rate, sensor, layout):
         err = max(err, diff.max().item())
         log(f"B1 {layout} {name}: counts exact "
             f"({int(p_cnt.sum().item())} events), max |dtsum| "
-            f"{diff.max().item():.3e}")
-        del cnt, tsum, p_cnt, p_tsum
+            f"{diff.max().item():.3e} (t-sums bitwise equal to the twin's: "
+            f"{torch.equal(tsum, p_tsum)}), every cell written")
+        del cnt, tsum, p_cnt, p_tsum, diff
+        ms[name] = time_ms(lambda: enc.scatter_cnt_tsum(ev, nv, **kw))
+        library_ms[name] = index_add_ms(*enc.event_cells(ev, nv, H, W, layout),
+                                        P)
     ev, nv = ev_sets["uniform"]
-    P = H * W * 2
-    ms = time_ms(lambda: enc.scatter_cnt_tsum(ev, nv, **kw))
+    alone_ms = time_ms(lambda: enc.scatter._event_histogram(
+        ev, nv, H, W, layout, alone))
+    off = ev.clone()
+    off[..., 0] = -5.0                      # every event off the sensor
+    none = torch.zeros_like(nv)
+    split = dict(empty=time_ms(lambda: enc.scatter_cnt_tsum(ev, none, **kw)),
+                 scan=time_ms(lambda: enc.scatter_cnt_tsum(off, nv, **kw)),
+                 planes=plane_write_ms(B, P))
+    log(split_line(f"B1 {layout}", split, ms["uniform"]))
+    del off
     plain_ms = time_ms(lambda: enc.scatter_cnt_tsum_plain(ev, nv, **kw))
-    library_ms = index_add_ms(*enc.event_cells(ev, nv, H, W, layout), P)
     n_events = int(nv.sum().item())
     bytes_moved = B * 4 + n_events * 16 + 2 * B * P * 4 + B * 4
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bytes_moved / rate * 1e3,
-                bound_by="bytes")
+    bound_ms = bytes_moved / rate * 1e3
+    log(f"B1 {layout}: " + ", ".join(
+        f"{k} {ms[k]:.3f} ms (index_add_ {library_ms[k]:.3f})" for k in ms)
+        + f"; per-block tiles {alone_ms:.3f} ms on uniform; twin "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms (bytes)")
+    return dict(max_abs_err=err, ms=ms["uniform"], plain_ms=plain_ms,
+                library_ms=library_ms["uniform"], bound_ms=bound_ms,
+                bound_by="bytes", ms_by_set=ms, library_ms_by_set=library_ms,
+                per_block_tiles_ms=alone_ms, split_ms=split)
 
 
 def check_update(enc, ev_sets, dev, rate):
@@ -571,19 +652,36 @@ def check_small_p64_against_cpu(pipeline, dev):
 
 def check_pair_sorted(enc, ev_sets, rate):
     """Phase 12: B6 vs its twin at full gen4 shape on the p64 cells of the
-    uniform and skewed windows. Counts exact; t-sums within cnt^2 * 2^-24
-    (the kernel sums each run in f32 in sorted order, the twin in f64 and
-    rounds once); two launches bitwise equal. Times on the uniform set: the
-    wrapper as the step calls it (sort, gather, zero fill, kernel), the sort
-    alone, the twin, index_add_ and a one-cell set (every event of a stream
-    in one cell: one thread walks the whole run)."""
+    uniform and skewed windows and of a one-cell set (every slot of the
+    uniform set in cell 1234). Counts exact; t-sums bitwise equal to the
+    twin's (the steps' t - 1 are multiples of 2^-24, summed exactly as
+    integers by the kernel and in f64 by the twin, each rounded once); two
+    launches bitwise equal; the outputs in blocks poisoned with NaN. Times
+    on each set beside index_add_, and on the uniform set the twin, the
+    per-block-tile form (clusters of 1) and the plain sorted histogram."""
     H, W = GEN4_SENSOR
     size = H * W * 2
+    plan = enc.scatter.tile_plan(size)
+    alone = enc.scatter.tile_plan(size, cluster=1)
     err, cells = 0.0, {}
     for name, (ev, nv) in ev_sets.items():
-        idx, tv, valid = cells[name] = enc.event_cells(ev, nv, H, W, "p64")
-        cnt, tsum = enc.scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
-        cnt2, tsum2 = enc.scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
+        cells[name] = enc.event_cells(ev, nv, H, W, "p64")
+    idx, tv, valid = cells["uniform"]
+    B = idx.shape[0]
+    log(f"B6 launch: {plan.describe(size, B)}")
+    log(f"B6 per-block tiles: {alone.describe(size, B)}")
+    cells["one_cell"] = (torch.full_like(idx, 1234), tv, valid)
+    ms, library_ms = {}, {}
+    for name, (idx, tv, valid) in cells.items():
+        runs = []
+        for _ in range(2):
+            poisoned = poison(((B, size), torch.float32),
+                              ((B, size), torch.float32))
+            runs.append(enc.scatter_cnt_tsum_pallas_sorted(idx, tv, valid,
+                                                           size))
+            torch.cuda.synchronize()
+            check_poisoned(f"B6 {name}", runs[-1], poisoned)
+        (cnt, tsum), (cnt2, tsum2) = runs
         p_cnt, p_tsum = enc.scatter_cnt_tsum_pallas_sorted_plain(
             idx, tv, valid, size)
         torch.cuda.synchronize()
@@ -592,43 +690,44 @@ def check_pair_sorted(enc, ev_sets, rate):
             raise SystemExit(f"B6 {name}: launches bitwise equal: {same}, "
                              f"counts equal to the twin's: "
                              f"{torch.equal(cnt, p_cnt)}")
-        diff = (tsum - p_tsum).abs()
-        if not bool((diff <= p_cnt * p_cnt * 2.0 ** -24).all()):
-            raise SystemExit(f"B6 {name}: t-sum error {diff.max().item()} "
-                             f"beyond cnt^2 * 2^-24")
-        err = max(err, diff.max().item())
+        diff = (tsum - p_tsum).abs().max().item()
+        if not torch.equal(tsum, p_tsum):
+            raise SystemExit(f"B6 {name}: t-sums not bitwise equal to the "
+                             f"twin's (max |d| {diff})")
+        err = max(err, diff)
         log(f"B6 {name}: counts exact ({int(p_cnt.sum().item())} events), "
-            f"max |dtsum| {diff.max().item():.3e}, two launches bitwise "
-            f"equal")
-        del cnt, tsum, cnt2, tsum2, p_cnt, p_tsum, diff
+            f"t-sums bitwise equal to the twin's, two launches bitwise "
+            f"equal, every cell written")
+        del runs, cnt, tsum, cnt2, tsum2, p_cnt, p_tsum
+        ms[name] = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(
+            idx, tv, valid, size))
+        library_ms[name] = index_add_ms(idx, tv, valid, size)
     idx, tv, valid = cells["uniform"]
-    ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(idx, tv, valid,
-                                                            size))
-    key = torch.where(valid, idx, size)
-    sort_ms = time_ms(lambda: torch.sort(key, dim=1, stable=True))
-    sort_gather_ms = time_ms(lambda: torch.gather(
-        tv, 1, torch.sort(key, dim=1, stable=True)[1]))
+    alone_ms = time_ms(lambda: enc.scatter._exact_histogram(
+        idx, tv, valid, size, alone))
+    none = torch.zeros_like(valid)
+    no_slots = [c[:, :0].contiguous() for c in (idx, tv, valid)]
+    split = dict(empty=time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(
+                     *no_slots, size)),
+                 scan=time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(
+                     idx, tv, none, size)),
+                 planes=plane_write_ms(B, size))
+    log(split_line("B6", split, ms["uniform"]))
     sorted_hist_ms = time_ms(lambda: enc.scatter_cnt_tsum_sorted(
         idx, tv, valid, size, False))
     plain_ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted_plain(
         idx, tv, valid, size), n=5)
-    library_ms = index_add_ms(idx, tv, valid, size)
-    one = torch.full_like(idx, 1234)
-    cnt, _ = enc.scatter_cnt_tsum_pallas_sorted(one, tv, valid, size)
-    if not torch.equal(cnt[:, 1234], valid.sum(1).float()):
-        raise SystemExit("B6 one-cell set: wrong count")
-    one_ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(
-        one, tv, valid, size), n=3, warm=1)
     bytes_moved = idx.numel() * (4 + 4 + 1) + 2 * idx.shape[0] * size * 4
     bound_ms = bytes_moved / rate * 1e3
-    log(f"B6: {ms:.3f} ms with the sort and the zero fill (sort alone "
-        f"{sort_ms:.3f} ms, sort + gather {sort_gather_ms:.3f} ms, so the "
-        f"key, zero fill and kernel {ms - sort_gather_ms:.3f} ms), one-cell "
-        f"set {one_ms:.3f} ms; twin {plain_ms:.3f} ms; index_add_ "
-        f"{library_ms:.3f} ms; bound {bound_ms:.4f} ms (bytes); the plain "
+    log("B6: " + ", ".join(
+        f"{k} {ms[k]:.3f} ms (index_add_ {library_ms[k]:.3f})" for k in ms)
+        + f"; per-block tiles {alone_ms:.3f} ms on uniform; twin "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms (bytes); the plain "
         f"sorted histogram (scatter='sorted') {sorted_hist_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
+    return dict(max_abs_err=err, ms=ms["uniform"], plain_ms=plain_ms,
+                library_ms=library_ms["uniform"], bound_ms=bound_ms,
+                bound_by="bytes", ms_by_set=ms, library_ms_by_set=library_ms,
+                per_block_tiles_ms=alone_ms, split_ms=split)
 
 
 def check_update_v2(enc, ev_sets, dev, rate):
@@ -997,7 +1096,12 @@ def main() -> int:
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        **{k: row[k] for k in ("ms_by_set",
+                                               "library_ms_by_set",
+                                               "per_block_tiles_ms",
+                                               "split_ms")
+                           if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

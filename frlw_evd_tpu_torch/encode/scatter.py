@@ -3,23 +3,29 @@ of frlw_evd_tpu/encode/pallas_scatter.py and of
 mxu_scatter.scatter_cnt_tsum_sorted).
 
 `scatter_cnt_tsum` (B1) turns padded events into per-cell count and t-sum
-planes. For CUDA tensors it launches `csrc/scatter_hist.cu` (one thread per
-event slot, f32 atomics); for CPU tensors it runs the plain twin
-`scatter_cnt_tsum_plain`. Counts are exact in both. t is kept exact, where
-the TPU path quantises it to 12 bits and rounds it to bf16; the t-sums of the
-two agree to about cnt * 2.5e-3.
+planes. For CUDA tensors it launches `csrc/scatter_hist.cu`; for CPU tensors
+it runs the plain twin `scatter_cnt_tsum_plain`. Counts are exact in both.
+t is kept exact (both sum t - 1 exactly and round once), where the TPU
+path quantises it to 12 bits and rounds it to bf16; the t-sums of the two
+agree to about cnt * 2.5e-3.
 
 The other three take cell indices, as the JAX functions of the same names
 do: idx, tvals, valid (B, E) → (cnt, tsum) each (B, size) f32, a slot
 counted when valid and 0 <= idx < size.
-- `scatter_cnt_tsum_pallas_sorted` (B6, precise=True only): stable sort by
-  cell, then `csrc/scatter_sorted.cu` reduces each cell's run with no
-  atomics, so its sums are bit-reproducible; t exact.
+- `scatter_cnt_tsum_pallas_sorted` (B6, precise=True only):
+  `csrc/scatter_sorted.cu` sums t as integers (LSB 2^-24) with no sort, so
+  its sums are bit-reproducible and, on the steps' t - 1, equal to its
+  twin's f64 sums rounded once.
 - `scatter_cnt_tsum_pallas` (B8): `csrc/scatter_dense.cu`, a shared-memory
   tile per block that every slot of its stream visits; t exact.
 - `scatter_cnt_tsum_sorted`: plain torch on any device, as the JAX function
   is XLA outside any Pallas kernel; it keeps that function's bf16 rounding
   of t.
+
+B1 and B6 are output-stationary cluster tiles (`csrc/hist_tile.cuh`):
+`tile_plan` cuts a stream's cells into the ranges of clusters of blocks,
+each block's slice in shared memory, and the kernel writes every output
+cell once (no zero fill).
 
 Two cell orders (`layout`): "folded", cell (y*W + x)*2 + p, for the folded
 full-resolution queue (pallas_update.py:111-119); and "p64", the patchified
@@ -29,12 +35,69 @@ s = (x&1)*2 + (y&1), cell ((y>>1)*(W/2) + (x>>1))*4 + s, index cell*2 + p.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..kernels import _build
 
 
 LAYOUTS = ("folded", "p64")
+
+# Shared memory a block can use on sm_90, the 16-byte any-event flag the
+# kernel keeps after its cells (csrc/hist_tile.cuh: kMaxSmem, kFlagBytes),
+# and the blocks of a cluster (the portable maximum).
+SMEM_PER_BLOCK = 232448
+_FLAG_BYTES = 16
+CLUSTER = 8
+# Bytes a cell takes in shared memory: one u64 holding its count and its
+# t-sum as integers (csrc/hist_tile.cuh: Packed).
+CELL_BYTES = 8
+# The kernels take E < 2^17 slots a stream: a cell's count has 17 bits.
+MAX_SLOTS = 2 ** 17 - 1
+
+
+class TilePlan(NamedTuple):
+    """How B1 and B6 cut a stream's cells: `clusters` clusters of `cluster`
+    blocks each; the stream's k-th block (rank r of cluster c is k = c *
+    cluster + r) owns cells [k * cells, (k + 1) * cells), clipped to the
+    stream's size."""
+    clusters: int
+    cluster: int
+    cells: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.cells * CELL_BYTES + _FLAG_BYTES
+
+    def ranges(self, size: int):
+        """(start, stop) of each block's cells, in launch order."""
+        return [(min(k * self.cells, size), min((k + 1) * self.cells, size))
+                for k in range(self.clusters * self.cluster)]
+
+    def describe(self, size: int, streams: int) -> str:
+        return (f"{self.clusters} cluster(s) of {self.cluster} blocks a "
+                f"stream, grid ({self.clusters * self.cluster}, {streams}), "
+                f"{self.cells} cells a block over {size}, "
+                f"{self.smem_bytes} B of dynamic shared memory a block")
+
+
+def tile_plan(size: int, cluster: int = CLUSTER) -> TilePlan:
+    """The fewest clusters of `cluster` blocks whose shared memory holds
+    `size` cells, the cells spread evenly over their blocks (a multiple of
+    4 a block, for 16-byte stores)."""
+    if size < 1 or cluster < 1:
+        raise ValueError(f"tile_plan: size {size}, cluster {cluster}")
+    most = (SMEM_PER_BLOCK - _FLAG_BYTES) // CELL_BYTES // 4 * 4
+    clusters = -(-size // (cluster * most))
+    cells = -(-size // (clusters * cluster))
+    return TilePlan(clusters, cluster, -(-cells // 4) * 4)
+
+
+def _check_slots(entry: str, E: int) -> None:
+    if E > MAX_SLOTS:
+        raise ValueError(f"{entry} takes at most {MAX_SLOTS} slots a stream "
+                         f"on the card, got {E}")
 
 
 def _check_inputs(xytp: torch.Tensor, n_valid: torch.Tensor, height: int,
@@ -79,7 +142,8 @@ def event_cells(xytp: torch.Tensor, n_valid: torch.Tensor, height: int,
 def scatter_cnt_tsum_plain(xytp: torch.Tensor, n_valid: torch.Tensor, *,
                            height: int, width: int, layout: str = "folded"):
     """Plain-PyTorch twin of kernel B1 (any device): returns
-    (cnt, tsum) each (B, H*W*2) f32 and any_ev (B,) int32."""
+    (cnt, tsum) each (B, H*W*2) f32 (t - 1 summed in f64, rounded once)
+    and any_ev (B,) int32."""
     _check_inputs(xytp, n_valid, height, width, layout)
     B = xytp.shape[0]
     P = height * width * 2
@@ -87,7 +151,7 @@ def scatter_cnt_tsum_plain(xytp: torch.Tensor, n_valid: torch.Tensor, *,
     offs = torch.arange(B, device=xytp.device)[:, None] * P
     flat = torch.where(valid, idx + offs, B * P).reshape(-1)   # B*P: dump bin
     cnt = torch.bincount(flat, minlength=B * P + 1)[:B * P]
-    tsum = torch.bincount(flat, weights=(tv * valid).reshape(-1),
+    tsum = torch.bincount(flat, weights=(tv * valid).double().reshape(-1),
                           minlength=B * P + 1)[:B * P]
     return (cnt.to(torch.float32).reshape(B, P),
             tsum.to(torch.float32).reshape(B, P),
@@ -106,7 +170,11 @@ def scatter_cnt_tsum(xytp: torch.Tensor, n_valid: torch.Tensor, *,
     any_ev (B,) int32, 1 where the stream had a counted event.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (and
-    count the launch in `scatter_cnt_tsum.launches`) or raise.
+    count the launch in `scatter_cnt_tsum.launches`) or raise. The kernel
+    writes all three outputs in full (they are allocated empty) and sums
+    the t - 1 as integers at LSB 2^-24, exactly for t in [0, 1]. It takes
+    E < 2^17; a counted event with |t - 1| >= 2^(21 - ceil(log2 E)) (32 at
+    E = 65536) makes its cell's t-sum NaN.
     """
     if xytp.device.type == "cpu":
         return scatter_cnt_tsum_plain(xytp, n_valid, height=height,
@@ -116,15 +184,23 @@ def scatter_cnt_tsum(xytp: torch.Tensor, n_valid: torch.Tensor, *,
     _check_inputs(xytp, n_valid, height, width, layout)
     if not xytp.is_contiguous() or xytp.data_ptr() % 16:
         raise ValueError("xytp must be contiguous and 16-byte aligned")
-    n_valid = n_valid.contiguous()
+    _check_slots("scatter_cnt_tsum", xytp.shape[1])
+    return _event_histogram(xytp, n_valid.contiguous(), height, width, layout,
+                            tile_plan(height * width * 2))
+
+
+def _event_histogram(xytp, n_valid, height: int, width: int, layout: str,
+                     plan: TilePlan):
+    """Launch kernel B1 on checked CUDA inputs with the tiling `plan`."""
     B, E, _ = xytp.shape
     P = height * width * 2
-    cnt = torch.zeros(B, P, dtype=torch.float32, device=xytp.device)
-    tsum = torch.zeros(B, P, dtype=torch.float32, device=xytp.device)
-    any_ev = torch.zeros(B, dtype=torch.int32, device=xytp.device)
+    cnt = torch.empty(B, P, dtype=torch.float32, device=xytp.device)
+    tsum = torch.empty(B, P, dtype=torch.float32, device=xytp.device)
+    any_ev = torch.empty(B, dtype=torch.int32, device=xytp.device)
     _build.launch("scatter_hist", "scatter_cnt_tsum",
                   (xytp, n_valid, cnt, tsum, any_ev),
-                  (B, E, height, width, LAYOUTS.index(layout)), xytp.device)
+                  (B, E, height, width, LAYOUTS.index(layout), plan.clusters,
+                   plan.cluster, plan.cells), xytp.device)
     scatter_cnt_tsum.launches += 1
     return cnt, tsum, any_ev
 
@@ -188,10 +264,13 @@ def scatter_cnt_tsum_pallas_sorted(idx, tvals, valid, size: int,
         kernel B1, which takes events: call `scatter_cnt_tsum`.
     Returns (cnt, tsum) each (B, size) f32.
 
-    CPU tensors run the plain twin; CUDA tensors sort by cell
-    (torch.sort, stable; t gathered in that order, as the JAX wrapper sorts
-    outside its kernel) and launch the kernel (counted in
-    `scatter_cnt_tsum_pallas_sorted.launches`) or raise.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (counted
+    in `scatter_cnt_tsum_pallas_sorted.launches`) or raise. The kernel reads
+    the slots unsorted and sums t as integers at LSB 2^-24, so two launches
+    agree bit for bit and, where every t is a multiple of 2^-24 (as the
+    steps' t - 1 are), the sums equal the twin's. It takes E < 2^17; a
+    counted t with |t| >= 2^(21 - ceil(log2 E)) (32 at E = 65536), or NaN,
+    makes its cell's t-sum NaN.
     """
     if not precise:
         raise ValueError("scatter_cnt_tsum_pallas_sorted takes precise=True "
@@ -203,14 +282,20 @@ def scatter_cnt_tsum_pallas_sorted(idx, tvals, valid, size: int,
         raise ValueError(f"scatter_cnt_tsum_pallas_sorted: unsupported device "
                          f"{idx.device}")
     _check_cells(idx, tvals, valid, size)
+    _check_slots("scatter_cnt_tsum_pallas_sorted", idx.shape[1])
+    return _exact_histogram(idx, tvals, valid, size, tile_plan(size))
+
+
+def _exact_histogram(idx, tvals, valid, size: int, plan: TilePlan):
+    """Launch kernel B6 on checked CUDA inputs with the tiling `plan`."""
     B, E = idx.shape
-    key = torch.where(_kept(idx, valid, size), idx, size)  # dropped sort last
-    idx_s, order = torch.sort(key, dim=1, stable=True)
-    t_s = torch.gather(tvals, 1, order)
-    cnt = torch.zeros(B, size, dtype=torch.float32, device=idx.device)
-    tsum = torch.zeros(B, size, dtype=torch.float32, device=idx.device)
-    _build.launch("scatter_sorted", "scatter_cnt_tsum_sorted_runs",
-                  (idx_s, t_s, cnt, tsum), (B, E, size), idx.device)
+    cnt = torch.empty(B, size, dtype=torch.float32, device=idx.device)
+    tsum = torch.empty(B, size, dtype=torch.float32, device=idx.device)
+    _build.launch("scatter_sorted", "scatter_cnt_tsum_exact",
+                  (idx.contiguous(), tvals.contiguous(), valid.contiguous(),
+                   cnt, tsum),
+                  (B, E, size, plan.clusters, plan.cluster, plan.cells),
+                  idx.device)
     scatter_cnt_tsum_pallas_sorted.launches += 1
     return cnt, tsum
 

@@ -63,7 +63,7 @@ def test_every_listed_source_exists(name):
 
 @pytest.mark.parametrize("name,entries", [
     ("scatter_hist", ["scatter_cnt_tsum"]),
-    ("scatter_sorted", ["scatter_cnt_tsum_sorted_runs"]),
+    ("scatter_sorted", ["scatter_cnt_tsum_exact"]),
     ("scatter_dense", ["scatter_cnt_tsum_dense"]),
     ("taf_update", ["taf_update_leaky", "taf_update_leaky_raw",
                     "taf_update_leaky_v2"]),

@@ -6,9 +6,10 @@ no JAX, so on a machine without it they run with conftest.py left out:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: counts exact; t-sums within the f32 reordering bound
-cnt^2 * 2^-23 (atomics add in a run-dependent order; B6 sums each run in
-sorted order against the twin's f64 sum, cnt^2 * 2^-24, and repeats bit for
-bit); the updates' state exact; volumes within one bf16 ulp (2^-8); B5
+cnt^2 * 2^-23 (B8's atomics add in a run-dependent order; B1's contract
+allows any order); B6's t-sums equal to the twin's bit for bit on the
+steps' t - 1 (it sums them as integers at LSB 2^-24, the twin in f64, and
+both round once), and two launches bitwise equal; the updates' state exact; volumes within one bf16 ulp (2^-8); B5
 equal to B3 on the same planes, bit for bit; the BFM chain (B4, B7) within
 atol 1e-2 + rtol 1e-2 (a bf16-rounded intermediate may round the other way
 where the twin sums in another order), B4's pad channels exactly zero.
@@ -73,6 +74,50 @@ def test_scatter_kernel_matches_twin(cuda, layout):
                                                   layout=layout)
     torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
     assert (anyv == p_any).all()
+    assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
+
+
+def _poison(*shapes):
+    """Fill blocks of the outputs' sizes with NaN (-7 for int32) and free
+    them, so the caching allocator hands them to the next call: an output
+    cell the kernel leaves unwritten then shows. Returns their addresses."""
+    blocks = [torch.full(shape, float("nan") if dtype == torch.float32
+                         else -7, dtype=dtype, device="cuda")
+              for shape, dtype in shapes]
+    torch.cuda.synchronize()
+    return {t.data_ptr() for t in blocks}
+
+
+@pytest.mark.parametrize("sensor,E", [((62, 74), 3001), ((256, 480), 4096)],
+                         ids=["one-cluster-ragged", "two-clusters"])
+@pytest.mark.parametrize("layout", ["folded", "p64"])
+def test_scatter_kernel_tiles_one_cell_and_writes_every_cell(cuda, sensor, E,
+                                                             layout):
+    """B1 where the cells are not a multiple of a cluster's range (62x74)
+    or take two clusters (256x480), on 3 streams (less than a wave), E not
+    a multiple of a warp: stream 0 skewed, stream 1 every event in one pixel
+    and polarity, stream 2 empty (any_ev 0). The outputs land in blocks
+    poisoned with NaN, so a cell left unwritten would show."""
+    H, W = sensor
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(2), 1, 3, E,
+                                          sensor)
+    ev, nv = ev[0], nv[0]
+    ev[1, :, 0], ev[1, :, 1], ev[1, :, 3] = 7.0, 5.0, 1.0
+    nv[1], nv[2] = E, 0
+    ev, nv = torch.from_numpy(ev).to(cuda), torch.from_numpy(nv).to(cuda)
+    P = H * W * 2
+    poisoned = _poison(((3, P), torch.float32), ((3, P), torch.float32),
+                       ((3,), torch.int32))
+    cnt, tsum, anyv = scatter_cnt_tsum(ev, nv, height=H, width=W,
+                                       layout=layout)
+    torch.cuda.synchronize()
+    assert {cnt.data_ptr(), tsum.data_ptr(), anyv.data_ptr()} <= poisoned
+    p_cnt, p_tsum, p_any = scatter_cnt_tsum_plain(ev, nv, height=H, width=W,
+                                                  layout=layout)
+    assert torch.isfinite(cnt).all() and torch.isfinite(tsum).all()
+    torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
+    assert anyv.tolist() == p_any.tolist() == [1, 1, 0]
+    assert int(cnt[1].max()) == E
     assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
 
 
@@ -141,8 +186,8 @@ def _cells(cuda, layout):
 
 @pytest.mark.parametrize("layout", ["folded", "p64"])
 def test_pair_sorted_scatter_matches_twin_and_repeats(cuda, layout):
-    """B6 against its twin, a one-cell stream included, and two launches
-    bitwise equal."""
+    """B6 against its twin, a one-cell stream included: counts exact,
+    t-sums bit for bit (the steps' t - 1), and two launches bitwise equal."""
     idx, tv, valid, size = _cells(cuda, layout)
     idx[3] = 1234                              # one long run
     before = scatter_cnt_tsum_pallas_sorted.launches
@@ -153,8 +198,63 @@ def test_pair_sorted_scatter_matches_twin_and_repeats(cuda, layout):
     assert scatter_cnt_tsum_pallas_sorted.launches == before + 2
     assert torch.equal(cnt, cnt2) and torch.equal(tsum, tsum2)
     torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
-    assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -24).all()
+    assert torch.equal(tsum, p_tsum)
     assert int(p_cnt[3].max()) == int(valid[3].sum())
+
+
+@pytest.mark.parametrize("size", [45_001, 1_000_003],
+                         ids=["one-cluster-ragged", "five-clusters"])
+def test_exact_scatter_tiles_poison_and_no_sort(cuda, monkeypatch, size):
+    """B6 on 3 streams (less than a wave), E = 4099, a size that is not a
+    multiple of a cluster's range or that takes 5 clusters; stream 1 all in
+    one cell. t are multiples of 2^-24 in [-1, 0], as the steps' t - 1, so
+    the t-sums equal the twin's bit for bit; the outputs land in blocks
+    poisoned with NaN; and the CUDA branch runs with torch.sort,
+    torch.gather and torch.zeros made to raise. Then the range guard: at
+    E = 4099 an addend with |t| >= 2^(21 - 13) turns its cell's t-sum NaN
+    (so does a NaN t) and leaves every count and every other cell exact."""
+    rng = np.random.default_rng(5)
+    B, E = 3, 4099
+    idx = rng.integers(-3, size + 3, (B, E)).astype(np.int32)
+    idx[1] = 77
+    tv = (-rng.integers(0, 2 ** 24 + 1, (B, E)) * 2.0 ** -24).astype(
+        np.float32)
+    valid = rng.random((B, E)) < 0.9
+    idx, tv, valid = (torch.from_numpy(a).to(cuda) for a in (idx, tv, valid))
+    p_cnt, p_tsum = scatter_cnt_tsum_pallas_sorted_plain(idx, tv, valid, size)
+
+    def refuse(name):
+        def raise_(*args, **kwargs):
+            raise AssertionError(f"the CUDA branch called torch.{name}")
+        return raise_
+    poisoned = _poison(((B, size), torch.float32), ((B, size), torch.float32))
+    with monkeypatch.context() as m:
+        for name in ("sort", "gather", "zeros"):
+            m.setattr(torch, name, refuse(name))
+        cnt, tsum = scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
+        torch.cuda.synchronize()
+    assert {cnt.data_ptr(), tsum.data_ptr()} <= poisoned
+    assert torch.equal(cnt, p_cnt) and torch.equal(tsum, p_tsum)
+    assert int(cnt[1, 77]) == int(valid[1].sum())
+
+    ok = valid & (idx >= 0) & (idx < size)
+    hit = ok.nonzero()[:2].tolist()          # two counted slots of stream 0
+    bad = tv.clone()
+    bad[tuple(hit[0])] = 2.0 ** 8
+    bad[tuple(hit[1])] = float("nan")
+    b_cnt, b_tsum = scatter_cnt_tsum_pallas_sorted(idx, bad, valid, size)
+    torch.cuda.synchronize()
+    assert torch.equal(b_cnt, p_cnt)
+    nan_cells = {(b, int(idx[b, e])) for b, e in hit}
+    assert {tuple(c) for c in b_tsum.isnan().nonzero().tolist()} == nan_cells
+    keep = ~b_tsum.isnan()
+    assert torch.equal(b_tsum[keep], p_tsum[keep])
+    near = tv.clone()
+    near[tuple(hit[0])] = 2.0 ** 8 - 1.0     # inside the range: summed
+    n_cnt, n_tsum = scatter_cnt_tsum_pallas_sorted(idx, near, valid, size)
+    w_cnt, w_tsum = scatter_cnt_tsum_pallas_sorted_plain(idx, near, valid,
+                                                         size)
+    assert torch.equal(n_cnt, w_cnt) and torch.equal(n_tsum, w_tsum)
 
 
 def test_dense_scatter_matches_twin(cuda):
@@ -229,6 +329,20 @@ def test_chain_kernels_match_twins(cuda, folded):
     if folded:
         pad = out.view(3, 8, 16, 64)[..., 48:]
         assert torch.equal(pad, torch.zeros_like(pad))
+
+
+def test_histograms_refuse_more_slots_than_a_count_holds(cuda):
+    """B1 and B6 keep a cell's count in 17 bits: E >= 2^17 raises."""
+    E = 2 ** 17
+    with pytest.raises(ValueError, match="slots a stream"):
+        scatter_cnt_tsum(torch.zeros(1, E, 4, device=cuda),
+                         torch.zeros(1, dtype=torch.int32, device=cuda),
+                         height=4, width=4)
+    with pytest.raises(ValueError, match="slots a stream"):
+        scatter_cnt_tsum_pallas_sorted(
+            torch.zeros(1, E, dtype=torch.int32, device=cuda),
+            torch.zeros(1, E, device=cuda),
+            torch.zeros(1, E, dtype=torch.bool, device=cuda), 8)
 
 
 def test_wrappers_raise_on_misaligned_events(cuda):
