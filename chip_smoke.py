@@ -35,7 +35,10 @@ Phases (any failure exits non-zero; no phase catches and continues):
   8. kernels B4 (bfm_chain_apply_folded) and B7 (bfm_chain_apply) against
      their twins on all 128 streams of the gen4 volume: atol 1e-2 + rtol
      1e-2 (a bf16-rounded intermediate may round the other way), B4's pad
-     channels exactly zero;
+     channels exactly zero; the share of outputs that differ from the twin
+     at all, the weight pack's time beside the wrapper's, and the SASS of
+     libbfm_chain.so: it must hold HMMA (tensor-core) instructions and no
+     local-memory spills (STL / LDL);
   9. the 1 Mpx (gen4_taf) main path at full width: AED with the bfm_folded
      stem, 7 classes, bf16, B = 128, E = 65536, 512x640, 4 windows carrying
      state; B1, B3 and B4 must launch on every window; per-stage times,
@@ -74,9 +77,11 @@ its last line, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -99,7 +104,8 @@ BF16_TENSOR_FLOP_PER_S = {"H100 PCIe": 756e12, "H100 NVL": 835e12,
 # clock per SM on compute capability 9.0 against 128 f32 FMAs (CUDA C++
 # Programming Guide, arithmetic instruction throughput), so the SFU rate is
 # the f32 FMA rate in FLOP/s over 16. silu(u) = u / (1 + exp(-u)) with IEEE
-# expf and division needs one of each, so 2 SFU results per silu at least.
+# expf and division, or as ex2.approx and rcp.approx (kernels B4 and B7),
+# needs one of each, so 2 SFU results per silu at least.
 SFU_PER_SILU = 2
 
 
@@ -445,11 +451,32 @@ def check_update_raw(enc, ev_sets, dev, rate):
                 bound_by="bytes")
 
 
+def check_chain_sass():
+    """Phase 8's build check: the SASS of libbfm_chain.so (cuobjdump) must
+    hold tensor-core HMMA instructions and no local-memory traffic (STL /
+    LDL, which is how a register spill shows)."""
+    from frlw_evd_tpu_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.so_path(
+        "bfm_chain"))], capture_output=True, text=True, check=True,
+        timeout=120).stdout
+    hmma = len(re.findall(r"\bHMMA\b", sass))
+    local = len(re.findall(r"\b(?:STL|LDL)\b", sass))
+    log(f"libbfm_chain.so SASS: {hmma} HMMA, {local} STL/LDL instructions")
+    if hmma == 0 or local:
+        raise SystemExit(f"bfm_chain: {hmma} HMMA and {local} local-memory "
+                         f"instructions in its SASS (want > 0 and 0)")
+
+
 def check_chains(stem_chain, dev, card_name):
     """Phase 8: B4 and B7 vs their twins at full gen4 shape, bf16 volume,
     weights of a seeded full-width stem. Tolerance atol 1e-2 + rtol 1e-2:
     a bf16-rounded intermediate may round the other way where the twin
-    sums in another order; B4's pad channels exactly zero.
+    sums in another order (and the kernels' silu is the SFU form); B4's
+    pad channels exactly zero. Prints the share of outputs that differ from
+    the twin at all, and the weight pack's time beside the wrapper's (which
+    keeps its pack while the parameters are unchanged).
 
     Bound: the largest of the bytes over the HBM rate, the products
     (bf16 x bf16 with f32 sums, the tensor cores' type) over the bf16
@@ -474,6 +501,7 @@ def check_chains(stem_chain, dev, card_name):
                   / bf16_tensor_flops(card_name))
     silu_s = (SFU_PER_SILU * stem_chain.SILU_PER_SUBPIXEL * n_sub
               / (f32_flops(card_name) / 16))
+    check_chain_sass()
     rows = {}
     for name, out_c in (("bfm_chain_apply_folded", 64),
                         ("bfm_chain_apply", 48)):
@@ -496,11 +524,17 @@ def check_chains(stem_chain, dev, card_name):
             raise SystemExit(f"{name}: {bad} values beyond atol 1e-2 + rtol "
                              f"1e-2 (max |d| {max_err}), pad zero: "
                              f"{pad_zero}")
+        differ = float((out != want).float().mean().item())
         log(f"{name}: matches its twin on all {B} streams, max |d| "
-            f"{max_err:.3e}, {active:.1%} of outputs > 0")
+            f"{max_err:.3e}, {differ:.4%} of outputs differ from the twin at "
+            f"all, {active:.1%} of outputs > 0")
         del out, want, err
         torch.cuda.empty_cache()
         ms = time_ms(lambda: fn(*args, **kw))
+        pack_ms = time_ms(lambda: stem_chain._pack(
+            stem_chain.chain_weights(params), dev))
+        log(f"{name}: wrapper {ms:.3f} ms (weights packed once and kept); "
+            f"the weight pack alone (chain_weights + _pack) {pack_ms:.3f} ms")
         plain_ms = time_ms(lambda: plain(*args, **kw), n=3, warm=1)
         bytes_s = ((vol.numel() * 2 + B * H2 * W2 * out_c * 2)
                    / hbm_rate(card_name))

@@ -21,6 +21,7 @@ functions take the canonical params subtree. CUDA tensors launch
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,6 +45,10 @@ def chain_weights(params) -> dict[str, torch.Tensor]:
     def rounded(w):
         return w.detach().to(torch.bfloat16).to(torch.float32).flatten(1)
 
+    levels = sum(name.endswith(".weight_v") for name in params)
+    if levels != len(GROUPS):
+        raise ValueError(f"the chain kernels take the K = 8, embed 4 BFM "
+                         f"({len(GROUPS)} levels), got {levels} levels")
     out = {}
     for i in range(len(GROUPS)):
         v = params[f"convs_{i}.weight_v"].detach()
@@ -64,12 +69,109 @@ def chain_weights(params) -> dict[str, torch.Tensor]:
     return out
 
 
+# The kernel's weight block (csrc/bfm_chain.cu): for each lane (g, t) =
+# (lane // 4, lane % 4) of a warp, FRAG_WORDS B-fragment words of mma.sync
+# (two bf16, the lower k in the low half), then N_BIASES f32 biases, those
+# of columns 2t and 2t + 1 of each n8 tile; stored [word][lane].
+FRAG_WORDS, N_BIASES = 31, 24
+PACK_WORDS = FRAG_WORDS + N_BIASES
+_FLAT = ("w0", "w1", "w2", "wu", "wd", "b0", "b1", "b2", "bu", "bd")
+_FLAT_SIZES = (64, 64, 32, 576, 576, 16, 8, 4, 48, 12)
+
+
+def x_channel(k: int) -> int:
+    """The input channel that the A fragment takes as k: lane t loads
+    channels 4t..4t+3 of a row as k = 2t, 2t+1, 2t+8, 2t+9."""
+    return 4 * ((k % 8) // 2) + 2 * (k // 8) + k % 2
+
+
+def y1_channel(n: int) -> int:
+    """The y1 channel in column n of y1's C tile: rotated by 4, so that
+    y1[0:4] sit in columns 4-7, where h takes them."""
+    return (n + 4) % 8
+
+
+def _dense_tiles() -> dict[str, np.ndarray]:
+    """Each product's B operand (K, N) and each bias row (N,) as indices
+    into the flat vector of _FLAT followed by one zero: the grouped convs as
+    block-diagonal tiles, the permutations applied, every pad entry the
+    index of that zero."""
+    off = dict(zip(_FLAT, np.cumsum((0,) + _FLAT_SIZES)))
+    zero = sum(_FLAT_SIZES)
+    t = {"w0": np.full((16, 16), zero), "w1": np.full((16, 8), zero),
+         "w2": np.full((8, 8), zero), "wu": np.full((16, 48), zero),
+         "wd": np.full((48, 16), zero), "b0": off["b0"] + np.arange(16),
+         "b1": off["b1"] + np.array([y1_channel(n) for n in range(8)]),
+         "b2": np.full(8, zero), "bu": off["bu"] + np.arange(48),
+         "bd": np.full(16, zero)}
+    for k in range(16):
+        c = x_channel(k)
+        for o in range(16):                       # y0[o] <- x[4 (o//4) + j]
+            if c // 4 == o // 4:
+                t["w0"][k, o] = off["w0"] + o * 4 + c % 4
+        for n in range(8):                        # y1[o] <- y0[8 (o//4) + j]
+            o = y1_channel(n)
+            if k // 8 == o // 4:
+                t["w1"][k, n] = off["w1"] + o * 8 + k % 8
+    for k in range(8):
+        for n in range(4):
+            t["w2"][k, n] = off["w2"] + n * 8 + y1_channel(k)
+    t["wu"][:12] = (off["wu"] + np.arange(48)[None, :] * 12
+                    + np.arange(12)[:, None])
+    t["wd"][:, :12] = (off["wd"] + np.arange(12)[None, :] * 48
+                       + np.arange(48)[:, None])
+    t["b2"][:4] = off["b2"] + np.arange(4)
+    t["bd"][:12] = off["bd"] + np.arange(12)
+    return t
+
+
+def _fragment_index() -> np.ndarray:
+    """(2 * FRAG_WORDS * 32 + N_BIASES * 32,) indices into the flat vector:
+    the B fragment halves [word][lane][half], then the biases [word][lane],
+    in the order of csrc/bfm_chain.cu's kW* and kB* offsets."""
+    t = _dense_tiles()
+    lane = np.arange(32)
+    g, tq = lane // 4, lane % 4
+
+    def frag(mat, k0, n0, k16=True):
+        """The b0 (and b1) words of the 16x8 (8x8) slice at (k0, n0)."""
+        words = [np.stack([mat[k0 + 2 * tq, n0 + g],
+                           mat[k0 + 2 * tq + 1, n0 + g]], -1)]
+        if k16:
+            words.append(np.stack([mat[k0 + 2 * tq + 8, n0 + g],
+                                   mat[k0 + 2 * tq + 9, n0 + g]], -1))
+        return words
+
+    words = (frag(t["w0"], 0, 0) + frag(t["w0"], 0, 8) + frag(t["w1"], 0, 0)
+             + frag(t["w2"], 0, 0, k16=False)
+             + [w for j in range(6) for w in frag(t["wu"], 0, 8 * j)]
+             + [w for c in range(3) for j in range(2)
+                for w in frag(t["wd"], 16 * c, 8 * j)])
+    biases = [row[8 * j + 2 * tq + e] for key in ("b0", "b1", "b2", "bu", "bd")
+              for row in (t[key],) for j in range(len(row) // 8)
+              for e in (0, 1)]
+    assert len(words) == FRAG_WORDS and len(biases) == N_BIASES
+    return np.concatenate([np.stack(words).reshape(-1),
+                           np.stack(biases).reshape(-1)])
+
+
+_INDEX: dict[torch.device, torch.Tensor] = {}
+
+
 def _pack(w: dict[str, torch.Tensor], device) -> torch.Tensor:
-    """The (1400,) f32 weight block in csrc/bfm_chain.cu's order, with
-    trans_down transposed so that the kernel reads each row contiguously."""
-    blocks = [w["w0"], w["b0"], w["w1"], w["b1"], w["w2"], w["b2"], w["wu"],
-              w["bu"], w["wd"].T, w["bd"]]
-    return torch.cat([b.reshape(-1) for b in blocks]).to(device)
+    """The (PACK_WORDS, 32) int32 weight block of csrc/bfm_chain.cu from
+    chain_weights: one gather from the flat weights, the fragment halves
+    rounded to bf16 (exact: the weights are bf16 values) and paired."""
+    flat = torch.cat([w[k].reshape(-1) for k in _FLAT]
+                     + [w["b0"].new_zeros(1)]).to(device)
+    index = _INDEX.get(flat.device)
+    if index is None:
+        index = _INDEX.setdefault(flat.device, torch.from_numpy(
+            _fragment_index()).to(flat.device))
+    vals = flat[index]
+    n = 2 * FRAG_WORDS * 32
+    return torch.cat([vals[:n].to(torch.bfloat16).view(torch.int32),
+                      vals[n:].view(torch.int32)]).view(PACK_WORDS, 32)
 
 
 def _round(t: torch.Tensor) -> torch.Tensor:
@@ -138,11 +240,35 @@ def bfm_chain_apply_plain(vol, params, *, act: str = "silu"):
     return h.reshape(*vol.shape[:-1], S * MIXER)
 
 
+_PACKED: dict[tuple, tuple] = {}       # key → (parameter tensors, block)
+_PACKED_MAX = 8
+
+
+def packed_weights(params, device) -> torch.Tensor:
+    """_pack(chain_weights(params), device), kept while the parameter
+    tensors stay as they were: weight norm and pack are some 35 small
+    operations, more host time than the kernel takes. The key is each
+    tensor's identity, storage and version counter, which every in-place
+    update bumps (an edit through `.data` does not, and is not seen).
+    Inference tensors keep no version counter and are packed every call."""
+    tensors = tuple(params[k] for k in sorted(params))
+    if any(t.is_inference() for t in tensors):
+        return _pack(chain_weights(params), device)
+    key = (str(device),) + tuple((id(t), t.data_ptr(), t._version)
+                                 for t in tensors)
+    hit = _PACKED.get(key)
+    if hit is None:
+        if len(_PACKED) >= _PACKED_MAX:
+            del _PACKED[next(iter(_PACKED))]
+        hit = _PACKED[key] = (tensors, _pack(chain_weights(params), device))
+    return hit[1]
+
+
 def _launch(entry: str, vol, params, out, B, H2, W2):
     if not vol.is_contiguous() or vol.data_ptr() % 16:
         raise ValueError(f"{entry}: the volume must be contiguous and "
                          f"16-byte aligned")
-    weights = _pack(chain_weights(params), vol.device)
+    weights = packed_weights(params, vol.device)
     _build.launch("bfm_chain", entry, (vol, weights, out), (B, H2, W2),
                   vol.device)
     return out

@@ -302,8 +302,15 @@ def test_plane_update_kernel_matches_twin_and_b3(cuda):
                                                                     r_vol)
 
 
+@pytest.mark.parametrize("shape", [(3, 8, 16), (3, 5, 7)],
+                         ids=["aligned", "ragged"])
 @pytest.mark.parametrize("folded", [True, False], ids=["B4", "B7"])
-def test_chain_kernels_match_twins(cuda, folded):
+def test_chain_kernels_match_twins(cuda, folded, shape, monkeypatch):
+    """B4 and B7 against their twins; the ragged shape has B*H2*W2 = 105
+    pixels, so the last 4-pixel tile is cut. The output is allocated filled
+    with NaN, so a word the kernel leaves unwritten (B4's pad included)
+    shows."""
+    B, H2, W2 = shape
     stem = BinsFusionModuleFolded(16, 8)
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
@@ -311,23 +318,30 @@ def test_chain_kernels_match_twins(cuda, folded):
             p.normal_(0.1 if name.endswith("bias") else 0.0, 0.3,
                       generator=g)
     params = {k: v.to(cuda) for k, v in stem.chain_params().items()}
-    vol = torch.rand(3, 8, 16, 64, generator=g).to(cuda, torch.bfloat16)
+    vol = torch.rand(B, H2, W2, 64, generator=g).to(cuda, torch.bfloat16)
     if folded:
         fn, plain = bfm_chain_apply_folded, bfm_chain_apply_folded_plain
-        args, kw = (vol.view(3, 8, 16 * 64), params), dict(width=16)
+        args, kw = (vol.view(B, H2, W2 * 64), params), dict(width=W2)
+        alloc = "empty_like"
     else:
         fn, plain = bfm_chain_apply, bfm_chain_apply_plain
         args, kw = (vol, params), {}
+        alloc = "empty"
+    make = getattr(torch, alloc)
+    monkeypatch.setattr(torch, alloc, lambda *a, **k: make(*a, **k).fill_(
+        float("nan")))
     before = fn.launches
     out = fn(*args, **kw)
+    monkeypatch.undo()
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert out.shape == want.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all()), "an output word was not written"
     torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
     if folded:
-        pad = out.view(3, 8, 16, 64)[..., 48:]
+        pad = out.view(B, H2, W2, 64)[..., 48:]
         assert torch.equal(pad, torch.zeros_like(pad))
 
 
