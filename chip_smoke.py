@@ -65,7 +65,25 @@ Phases (any failure exits non-zero; no phase catches and continues):
      detect stage for 3 windows; B5 and B4 must launch on every window of
      both, B6 on every window of the second; per-stage times, windows/s;
  16. the precise and sorted p64 steps and the precise GEN1 step on a small
-     input, card against CPU, with phase 11's state and volume gates.
+     input, card against CPU, with phase 11's state and volume gates;
+ 17. gen1_train at full width: the AED SimOTA train step (stem bfm,
+     Darknet-21, PAFPN, YOLOX head, 256 wide, 2 classes, 256x320x16 input,
+     batch 64, Adam 1e-3, radius 2.5, bf16 compute over f32 masters,
+     dropout on) through frlw_evd_tpu_torch.train.run_train: 2 warm-up
+     steps (the first under FlopCounterMode), then 10 timed steps ending in
+     a host read; ms/step, windows/s, peak memory and MFU over the dense
+     bf16 peak; every loss finite, total_loss moving, every master f32 and
+     moved, every BatchNorm statistic moved, and no kernel launched;
+ 18. gen4_train the same: 7 classes, 512x640x16 input, batch 32;
+ 19. one train step of a small AED, card against CPU (TF32 off, dropout
+     0): in f32 the losses within rtol 2e-4 and the running statistics
+     within atol 1e-5, and with the network in f64 the gradients within
+     1e-6 of each leaf's largest magnitude and the parameters after the SGD
+     step within atol 1e-6, the gates of tests/test_torch_port_train.py;
+ 20. B1 and B6 at E = 2^19 slots a stream (the JAX fetcher's padding) on 4
+     streams at the gen4 sensor, uniform and one-cell: one launch a chunk
+     of at most 2^17 - 1 slots, then B1 against its twin with phase 2's
+     gates and B6 bit for bit with its twin; each timed.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -491,7 +509,7 @@ def check_chains(stem_chain, dev, card_name):
         for pname, p in stem.chain_params().items():
             p.normal_(0.1 if pname.endswith("bias") else 0.0, 0.3,
                       generator=g)
-    params = {k: v.to(dev, torch.bfloat16)
+    params = {k: v.detach().to(dev, torch.bfloat16)
               for k, v in stem.chain_params().items()}
     gd = torch.Generator(device=dev).manual_seed(1)
     vol = torch.rand(B, H2, W2 * 64, device=dev, generator=gd).to(
@@ -986,6 +1004,201 @@ def check_small_steps_against_cpu(enc, pipeline, dev):
                 f"{st_err:.2e}, vol err {vol_err:.2e}")
 
 
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+
+
+def run_train_config(train, build_detector, counters, config, dev, card,
+                     card_name):
+    """Phases 17 and 18: `config` of train.TRAIN_CONFIGS at full width
+    through train.run_train, with the checks listed in the docstring.
+    Returns the phase's numbers."""
+    cfg = train.TRAIN_CONFIGS[config]
+    model = build_detector(cfg["num_classes"], stem="bfm", train=True,
+                           generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    for fn in counters.values():
+        fn.launches = 0
+    rep = train.run_train(config, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+                          model=model, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise SystemExit(f"{config} launched a kernel: {launches}")
+    losses = rep["losses"]
+    if not all(np.isfinite(v) for lo in losses for v in lo.values()):
+        raise SystemExit(f"{config}: a non-finite loss: {losses}")
+    totals = [lo["total_loss"] for lo in losses]
+    if max(totals) == min(totals):
+        raise SystemExit(f"{config}: total_loss did not move: {totals}")
+    params = dict(model.named_parameters())
+    for k, v in model.state_dict().items():
+        if not v.is_floating_point():
+            continue
+        if v.dtype != torch.float32:
+            raise SystemExit(f"{config}: {k} is {v.dtype}, not f32")
+        if torch.equal(v.cpu(), before[k]):
+            kind = "master" if k in params else "BatchNorm statistic"
+            raise SystemExit(f"{config}: {kind} {k} did not move")
+    s_per_step = rep["ms_per_step"] / 1e3
+    mfu = rep["flops_per_step"] / s_per_step / bf16_tensor_flops(card_name)
+    log(f"{config} on {card}: {rep['ms_per_step']:.2f} ms/step at batch "
+        f"{rep['batch']}, {rep['windows_per_s']:.1f} windows/s, peak memory "
+        f"{rep['peak_bytes'] / 2**30:.2f} GiB, "
+        f"{rep['flops_per_step'] / 1e12:.3f} TFLOP/step counted (matrix "
+        f"products and convolutions, forward and backward), MFU {mfu:.2%} "
+        f"of {bf16_tensor_flops(card_name) / 1e12:.0f} TFLOP/s dense bf16")
+    log(f"{config} total_loss by step: "
+        + ", ".join(f"{t:.4f}" for t in totals))
+    return dict(ms_per_step=rep["ms_per_step"],
+                windows_per_s=rep["windows_per_s"],
+                peak_gib=rep["peak_bytes"] / 2**30,
+                tflop_per_step=rep["flops_per_step"] / 1e12, mfu=mfu)
+
+
+SMALL_TRAIN_GATES = {"losses": 2e-4, "statistics": 1e-5, "gradients": 1e-6,
+                     "parameters": 1e-6}
+STATS = ("running_mean", "running_var")
+
+
+def small_train_batch(rng, H=64, W=96):
+    """tests/test_train_p64.py's batch, as numpy: 4 volumes U(0, 1) of
+    (H, W, 2K), 10 label rows [class, cx, cy, w, h] of which 3 hold gts
+    of 2 classes."""
+    imgs = rng.uniform(0, 1, (4, H, W, 2 * K)).astype(np.float32)
+    labels = np.zeros((4, 10, 5), np.float32)
+    for b in range(4):
+        labels[b, :3] = [[rng.integers(0, 2), rng.uniform(20, W - 20),
+                          rng.uniform(20, H - 20), rng.uniform(8, 30),
+                          rng.uniform(8, 30)] for _ in range(3)]
+    return imgs, labels
+
+
+def small_sgd_step(train, build_detector, device, dtype, imgs, labels):
+    """One SGD(1e-2) step of the seeded small AED (32 wide, dropout 0) in
+    `dtype` on `device`: (losses, gradients, float state after), as f64 on
+    the CPU."""
+    model = build_detector(2, stem="bfm", train=True, dropout_rate=0.0,
+                           generator=torch.Generator().manual_seed(0),
+                           in_channels=(32, 32, 32), stem_out_channels=16,
+                           head_width=32)
+    if dtype == torch.float32:
+        state = train.create_train_state(model, train.sgd(1e-2),
+                                         device=device)
+    else:
+        model.to(device, dtype)
+        state = train.TrainState(0, model,
+                                 train.sgd(1e-2).make(model.parameters()))
+    step = train.make_train_step((8, 16, 32), 2, 2.5, device=device)
+    losses = step(state, torch.from_numpy(imgs).to(dtype),
+                  torch.from_numpy(labels), torch.Generator(device=device))
+    return ({k: v.item() for k, v in losses.items()},
+            {k: p.grad.double().cpu() for k, p in model.named_parameters()},
+            {k: v.double().cpu() for k, v in model.state_dict().items()
+             if v.is_floating_point()})
+
+
+def small_train_errors(train, build_detector, dev) -> dict:
+    """small_sgd_step on `dev` against the CPU, TF32 off meanwhile: in f32
+    the losses' largest relative error and the running statistics' largest
+    absolute error; with the network in f64 the gradients' error over each
+    leaf's largest magnitude and the parameters' absolute error after the
+    step. Held to SMALL_TRAIN_GATES, the gates of
+    tests/test_torch_port_train.py."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        imgs, labels = small_train_batch(np.random.default_rng(0))
+        runs = {d: small_sgd_step(train, build_detector, d, torch.float32,
+                                  imgs, labels) for d in ("cpu", dev)}
+        err = {"losses": max(abs(runs[dev][0][k] / v - 1)
+                             for k, v in runs["cpu"][0].items()),
+               "statistics": max((runs[dev][2][k] - v).abs().max().item()
+                                 for k, v in runs["cpu"][2].items()
+                                 if k.endswith(STATS))}
+        runs = {d: small_sgd_step(train, build_detector, d, torch.float64,
+                                  imgs, labels) for d in ("cpu", dev)}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    err["gradients"] = max((runs[dev][1][k] - g).abs().max().item()
+                           / max(g.abs().max().item(), 1e-12)
+                           for k, g in runs["cpu"][1].items())
+    err["parameters"] = max((runs[dev][2][k] - v).abs().max().item()
+                            for k, v in runs["cpu"][2].items()
+                            if not k.endswith(STATS))
+    return err
+
+
+def check_small_train_against_cpu(train, build_detector, dev):
+    """Phase 19: small_train_errors within SMALL_TRAIN_GATES."""
+    err = small_train_errors(train, build_detector, dev)
+    log(f"small train step, card vs CPU: f32 losses rel err "
+        f"{err['losses']:.2e}, running statistics err "
+        f"{err['statistics']:.2e}; f64 network: gradients err "
+        f"{err['gradients']:.2e} of each leaf's largest, parameters after "
+        f"SGD err {err['parameters']:.2e}")
+    if any(err[k] > gate for k, gate in SMALL_TRAIN_GATES.items()):
+        raise SystemExit(f"small train step: card and CPU disagree beyond "
+                         f"the gates {SMALL_TRAIN_GATES}")
+
+
+def check_long_streams(enc, pipeline, dev, rate):
+    """Phase 20: B1 and B6 at E = 2^19 on 4 streams at the gen4 sensor,
+    uniform and one-cell sets: one launch a chunk of slots, B1's counts
+    and any_ev exact and t-sums within cnt^2 * 2^-23 of its twin's, B6 bit
+    for bit with its twin; the time of each over its chunks."""
+    H, W = GEN4_SENSOR
+    size = H * W * 2
+    E_long = 2 ** 19
+    chunks = len(enc.scatter.slot_chunks(E_long))
+    ev, nv = pipeline.synth_events(np.random.default_rng(5), 1, 4, E_long,
+                                   GEN4_SENSOR)
+    ev, nv = torch.from_numpy(ev[0]).to(dev), torch.from_numpy(nv[0]).to(dev)
+    sets = {"uniform": (ev, nv), "one_cell": (one_cell_events(ev), nv)}
+    for name, (ev, nv) in sets.items():
+        before = enc.scatter_cnt_tsum.launches
+        cnt, tsum, anyv = enc.scatter_cnt_tsum(ev, nv, height=H, width=W,
+                                               layout="p64")
+        torch.cuda.synchronize()
+        n_b1 = enc.scatter_cnt_tsum.launches - before
+        p_cnt, p_tsum, p_any = enc.scatter_cnt_tsum_plain(
+            ev, nv, height=H, width=W, layout="p64")
+        b1_ok = (torch.equal(cnt, p_cnt) and torch.equal(anyv, p_any)
+                 and bool(((tsum - p_tsum).abs()
+                           <= p_cnt * p_cnt * 2.0 ** -23).all()))
+        del cnt, tsum, p_tsum
+        idx, tv, valid = enc.event_cells(ev, nv, H, W, "p64")
+        before = enc.scatter_cnt_tsum_pallas_sorted.launches
+        cnt6, tsum6 = enc.scatter_cnt_tsum_pallas_sorted(idx, tv, valid,
+                                                         size)
+        torch.cuda.synchronize()
+        n_b6 = enc.scatter_cnt_tsum_pallas_sorted.launches - before
+        q_cnt, q_tsum = enc.scatter_cnt_tsum_pallas_sorted_plain(
+            idx, tv, valid, size)
+        b6_ok = torch.equal(cnt6, q_cnt) and torch.equal(tsum6, q_tsum)
+        if not (b1_ok and b6_ok and n_b1 == n_b6 == chunks
+                and torch.equal(q_cnt, p_cnt)):
+            raise SystemExit(f"E = 2^19 {name}: B1 agrees {b1_ok} with "
+                             f"{n_b1} launches, B6 bitwise {b6_ok} with "
+                             f"{n_b6}, {chunks} chunks")
+        del cnt6, tsum6, q_cnt, q_tsum, p_cnt
+        b1_ms = time_ms(lambda: enc.scatter_cnt_tsum(
+            ev, nv, height=H, width=W, layout="p64"), n=5)
+        b6_ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(
+            idx, tv, valid, size), n=5)
+        B_ = ev.shape[0]
+        b1_bound = (ev.numel() * 4 + 2 * B_ * size * 4) / rate * 1e3
+        b6_bound = (idx.numel() * 9 + 2 * B_ * size * 4) / rate * 1e3
+        log(f"E = 2^19 {name} ({B_} streams, {chunks} launches a call): B1 "
+            f"{b1_ms:.3f} ms (bound {b1_bound:.4f}), B6 {b6_ms:.3f} ms "
+            f"(bound {b6_bound:.4f}); counts exact, B6 bitwise equal to its "
+            f"twin")
+        del idx, tv, valid
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1074,6 +1287,19 @@ def main() -> int:
                          windows[:3], dev, card))
     phase(16, "precise and sorted steps small, card vs CPU",
           check_small_steps_against_cpu, enc, pipeline, dev)
+    del windows, ev_sets
+    torch.cuda.empty_cache()
+
+    from frlw_evd_tpu_torch import train
+    from frlw_evd_tpu_torch.models import build_detector
+    for n, config in ((17, "gen1_train"), (18, "gen4_train")):
+        phase(n, config, run_train_config, train, build_detector, counters,
+              config, dev, card, name)
+        torch.cuda.empty_cache()
+    phase(19, "small train step, card vs CPU", check_small_train_against_cpu,
+          train, build_detector, dev)
+    phase(20, "B1 and B6 at E = 2^19", check_long_streams, enc, pipeline,
+          dev, rate)
 
     # entry: (wrapper, paths that launch it at the entry's shape, the first
     # being the one whose launches the entry reports, source, TPU kernel)

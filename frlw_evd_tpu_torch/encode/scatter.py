@@ -53,7 +53,10 @@ CLUSTER = 8
 # Bytes a cell takes in shared memory: one u64 holding its count and its
 # t-sum as integers (csrc/hist_tile.cuh: Packed).
 CELL_BYTES = 8
-# The kernels take E < 2^17 slots a stream: a cell's count has 17 bits.
+# A cell's count has 17 bits, so one launch of B1 or B6 takes E < 2^17
+# slots a stream. The wrappers take any E: past MAX_SLOTS they launch the
+# kernel over chunks of at most MAX_SLOTS slots of each stream and add the
+# chunks' planes (`_over_slot_chunks`); their twins chunk the same way.
 MAX_SLOTS = 2 ** 17 - 1
 
 
@@ -94,10 +97,39 @@ def tile_plan(size: int, cluster: int = CLUSTER) -> TilePlan:
     return TilePlan(clusters, cluster, -(-cells // 4) * 4)
 
 
-def _check_slots(entry: str, E: int) -> None:
-    if E > MAX_SLOTS:
-        raise ValueError(f"{entry} takes at most {MAX_SLOTS} slots a stream "
-                         f"on the card, got {E}")
+def slot_chunks(E: int):
+    """(start, stop) of the chunks of at most MAX_SLOTS slots that B1 and
+    B6 cut a stream of E slots into, in order; one chunk when E <=
+    MAX_SLOTS."""
+    return [(lo, min(lo + MAX_SLOTS, E))
+            for lo in range(0, max(E, 1), MAX_SLOTS)]
+
+
+def _over_slot_chunks(hist, slots, n_valid=None):
+    """hist(*slots[, n_valid]) on the slots as given when E <= MAX_SLOTS.
+    Past that, hist on each chunk of `slot_chunks(E)` (the (B, E, ...)
+    slot tensors cut along E and copied contiguous, n_valid shifted to the
+    chunk), the count and t-sum planes added in f32 in chunk order and a
+    third output (any_ev) or-ed. Counts stay exact; each chunk's t-sum is
+    rounded once to f32 before the adds."""
+    E = slots[0].shape[1]
+    extra = () if n_valid is None else (n_valid,)
+    if E <= MAX_SLOTS:
+        return hist(*slots, *extra)
+    out = None
+    for lo, hi in slot_chunks(E):
+        part = [s[:, lo:hi].contiguous() for s in slots]
+        if n_valid is not None:
+            part.append((n_valid - lo).clamp(0, hi - lo).to(torch.int32))
+        got = hist(*part)
+        if out is None:
+            out = list(got)
+            continue
+        out[0] += got[0]
+        out[1] += got[1]
+        if len(got) > 2:
+            out[2] |= got[2]
+    return tuple(out)
 
 
 def _check_inputs(xytp: torch.Tensor, n_valid: torch.Tensor, height: int,
@@ -142,9 +174,17 @@ def event_cells(xytp: torch.Tensor, n_valid: torch.Tensor, height: int,
 def scatter_cnt_tsum_plain(xytp: torch.Tensor, n_valid: torch.Tensor, *,
                            height: int, width: int, layout: str = "folded"):
     """Plain-PyTorch twin of kernel B1 (any device): returns
-    (cnt, tsum) each (B, H*W*2) f32 (t - 1 summed in f64, rounded once)
-    and any_ev (B,) int32."""
+    (cnt, tsum) each (B, H*W*2) f32 (t - 1 summed in f64, rounded once a
+    chunk of MAX_SLOTS slots, as the wrapper launches B1) and any_ev (B,)
+    int32."""
     _check_inputs(xytp, n_valid, height, width, layout)
+    return _over_slot_chunks(
+        lambda ev, nv: _plain_event_histogram(ev, nv, height, width, layout),
+        (xytp,), n_valid)
+
+
+def _plain_event_histogram(xytp, n_valid, height: int, width: int,
+                           layout: str):
     B = xytp.shape[0]
     P = height * width * 2
     idx, tv, valid = event_cells(xytp, n_valid, height, width, layout)
@@ -170,11 +210,13 @@ def scatter_cnt_tsum(xytp: torch.Tensor, n_valid: torch.Tensor, *,
     any_ev (B,) int32, 1 where the stream had a counted event.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (and
-    count the launch in `scatter_cnt_tsum.launches`) or raise. The kernel
+    count each launch in `scatter_cnt_tsum.launches`) or raise. The kernel
     writes all three outputs in full (they are allocated empty) and sums
     the t - 1 as integers at LSB 2^-24, exactly for t in [0, 1]. It takes
-    E < 2^17; a counted event with |t - 1| >= 2^(21 - ceil(log2 E)) (32 at
-    E = 65536) makes its cell's t-sum NaN.
+    E < 2^17 a launch, so past MAX_SLOTS the wrapper launches it once a
+    chunk of slots and adds the planes (`_over_slot_chunks`). A counted
+    event with |t - 1| >= 2^(21 - ceil(log2 E)) (32 at E = 65536, 16 for a
+    chunk of MAX_SLOTS) makes its cell's t-sum NaN.
     """
     if xytp.device.type == "cpu":
         return scatter_cnt_tsum_plain(xytp, n_valid, height=height,
@@ -184,9 +226,10 @@ def scatter_cnt_tsum(xytp: torch.Tensor, n_valid: torch.Tensor, *,
     _check_inputs(xytp, n_valid, height, width, layout)
     if not xytp.is_contiguous() or xytp.data_ptr() % 16:
         raise ValueError("xytp must be contiguous and 16-byte aligned")
-    _check_slots("scatter_cnt_tsum", xytp.shape[1])
-    return _event_histogram(xytp, n_valid.contiguous(), height, width, layout,
-                            tile_plan(height * width * 2))
+    plan = tile_plan(height * width * 2)
+    return _over_slot_chunks(
+        lambda ev, nv: _event_histogram(ev, nv, height, width, layout, plan),
+        (xytp,), n_valid.contiguous())
 
 
 def _event_histogram(xytp, n_valid, height: int, width: int, layout: str,
@@ -240,8 +283,15 @@ def _stream_bins(idx, ok, size: int):
 
 def scatter_cnt_tsum_pallas_sorted_plain(idx, tvals, valid, size: int):
     """Plain-PyTorch twin of kernel B6 (any device): bincount of the
-    sentinel-mapped indices, t summed in f64 and rounded once."""
+    sentinel-mapped indices, t summed in f64 and rounded once a chunk of
+    MAX_SLOTS slots, the chunks' planes added as the wrapper adds B6's."""
     _check_cells(idx, tvals, valid, size)
+    return _over_slot_chunks(
+        lambda i, t, v: _plain_exact_histogram(i, t, v, size),
+        (idx, tvals, valid))
+
+
+def _plain_exact_histogram(idx, tvals, valid, size: int):
     B = idx.shape[0]
     ok = _kept(idx, valid, size)
     flat = _stream_bins(idx, ok, size)
@@ -264,13 +314,16 @@ def scatter_cnt_tsum_pallas_sorted(idx, tvals, valid, size: int,
         kernel B1, which takes events: call `scatter_cnt_tsum`.
     Returns (cnt, tsum) each (B, size) f32.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (counted
-    in `scatter_cnt_tsum_pallas_sorted.launches`) or raise. The kernel reads
-    the slots unsorted and sums t as integers at LSB 2^-24, so two launches
-    agree bit for bit and, where every t is a multiple of 2^-24 (as the
-    steps' t - 1 are), the sums equal the twin's. It takes E < 2^17; a
-    counted t with |t| >= 2^(21 - ceil(log2 E)) (32 at E = 65536), or NaN,
-    makes its cell's t-sum NaN.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (each
+    launch counted in `scatter_cnt_tsum_pallas_sorted.launches`) or raise.
+    The kernel reads the slots unsorted and sums t as integers at LSB
+    2^-24, so two launches agree bit for bit and, where every t is a
+    multiple of 2^-24 (as the steps' t - 1 are), the sums equal the twin's.
+    It takes E < 2^17 a launch; past MAX_SLOTS the wrapper launches it once
+    a chunk of slots and adds the planes in chunk order, as the twin does,
+    so the two stay equal bit for bit. A counted t with
+    |t| >= 2^(21 - ceil(log2 E)) (32 at E = 65536, 16 for a chunk of
+    MAX_SLOTS), or NaN, makes its cell's t-sum NaN.
     """
     if not precise:
         raise ValueError("scatter_cnt_tsum_pallas_sorted takes precise=True "
@@ -282,8 +335,10 @@ def scatter_cnt_tsum_pallas_sorted(idx, tvals, valid, size: int,
         raise ValueError(f"scatter_cnt_tsum_pallas_sorted: unsupported device "
                          f"{idx.device}")
     _check_cells(idx, tvals, valid, size)
-    _check_slots("scatter_cnt_tsum_pallas_sorted", idx.shape[1])
-    return _exact_histogram(idx, tvals, valid, size, tile_plan(size))
+    plan = tile_plan(size)
+    return _over_slot_chunks(
+        lambda i, t, v: _exact_histogram(i, t, v, size, plan),
+        (idx, tvals, valid))
 
 
 def _exact_histogram(idx, tvals, valid, size: int, plan: TilePlan):

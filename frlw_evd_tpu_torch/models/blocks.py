@@ -2,8 +2,9 @@
 
 NCHW `nn.Module`s. Submodule names follow the JAX package's flax names
 (`conv`, `bn`, `layer1`, `m_0`, ...), so a flax variable path maps to the
-port's state_dict key by joining it with dots (see `weights.py`). At eval
-the JAX package's SpmdBatchNorm is plain BatchNorm (eps 1e-5).
+port's state_dict key by joining it with dots (see `weights.py`). The JAX
+package's SpmdBatchNorm is `BatchNorm2d` below: plain BatchNorm (eps 1e-5)
+at eval, flax's statistics in training.
 """
 
 from __future__ import annotations
@@ -48,6 +49,51 @@ class PatchFusedConv2d(nn.Module):
         return F.conv2d(x, w6, stride=2, padding=2)
 
 
+MOMENTUM = 0.9          # flax's momentum (torch's 0.1), blocks.py:200
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's training semantics (blocks.py:40-134), under
+    nn.BatchNorm2d's state_dict names.
+
+    Training mode normalises with the batch's biased variance, as torch
+    does, but updates the running variance with the biased variance too
+    (running = 0.9 * running + 0.1 * batch), where nn.BatchNorm2d uses the
+    unbiased one, n / (n - 1) larger. The statistics come out of the one
+    batch-norm call that normalises: it writes the batch mean and unbiased
+    variance into scratch buffers (momentum 1), which are scaled back by
+    (n - 1) / n, one rounding more than flax's. They are reduced in at
+    least f32 whatever the input's dtype (torch centres the variance where
+    flax takes E[x^2] - E[x]^2: equal to f32 rounding), and the running
+    statistics keep their dtype (f32 under bf16 compute).
+
+    Eval runs nn.BatchNorm2d's own path when the input has the running
+    statistics' dtype (the serving models, cast whole). Under bf16 compute
+    copies over f32 statistics (train.make_eval_step) it normalises in f32
+    and returns the input's dtype, as flax does.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            if x.dtype == self.running_mean.dtype:
+                return super().forward(x)
+            return F.batch_norm(x.float(), self.running_mean,
+                                self.running_var, self.weight.float(),
+                                self.bias.float(), False, 0.0,
+                                self.eps).to(x.dtype)
+        stat = torch.promote_types(x.dtype, torch.float32)
+        mean = torch.zeros(x.shape[1], dtype=stat, device=x.device)
+        unbiased = torch.zeros_like(mean)
+        y = F.batch_norm(x, mean, unbiased, self.weight.to(stat),
+                         self.bias.to(stat), True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
+            self.running_var.mul_(MOMENTUM).add_(unbiased * ((n - 1) / n),
+                                                 alpha=1 - MOMENTUM)
+        return y
+
+
 class BaseConv(nn.Module):
     """Conv2d → BatchNorm → activation (blocks.py:177).
 
@@ -67,7 +113,7 @@ class BaseConv(nn.Module):
         else:
             self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
                                   (ksize - 1) // 2, groups=groups, bias=bias)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5)
         self.act = get_activation(act)
 
     def forward(self, x):

@@ -1,5 +1,6 @@
 """Composite detector: stem + backbone → neck → head (counterpart of
-frlw_evd_tpu/models/detector.py), for the AED family at eval.
+frlw_evd_tpu/models/detector.py), for the AED family, with its training
+loss.
 
 `EventDetector` takes the JAX layout at its boundary and returns per-level
 NHWC head maps; inside it runs NCHW (channels_last in memory when the input
@@ -12,6 +13,7 @@ volume (N, H, W, 2K) for `focus` and `bfm`, the patchified (N, H/2, W/2,
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Sequence
 
 import torch
@@ -19,13 +21,13 @@ from torch import nn
 
 from .blocks import Focus, PatchFusedConv2d
 from .darknet import Darknet
-from .heads import (YOLOXHead, decode_outputs, flatten_level_outputs,
-                    level_grids)
+from .heads import (YOLOXHead, compute_losses, decode_outputs,
+                    flatten_level_outputs, level_grids)
 from .pafpn import YOLOPAFPN
 from .stems import (BinsFusionModule, BinsFusionModuleFolded,
                     BinsFusionModulePatched, BinsFusionModulePatchedKernel,
                     FocusPatched, PadKernelConv2d, TiledConv1x1,
-                    WeightNormConv1x1)
+                    WeightNormConv1x1, _BFMChain)
 
 # the p64 variants have the parameters of focus / bfm (detector.py:93-106)
 _STEMS = {"focus": Focus, "bfm": BinsFusionModule, "focus_p64": FocusPatched,
@@ -87,17 +89,25 @@ def build_detector(num_classes: int, *, family: str = "aed",
                    in_channels: Sequence[int] = (256, 256, 256),
                    depth: float = 0.33, stem_out_channels: int = 64,
                    head_width: int = 256, input_channels: int = 16,
-                   generator: torch.Generator | None = None) -> EventDetector:
+                   generator: torch.Generator | None = None,
+                   train: bool = False,
+                   dropout_rate: float = 0.1) -> EventDetector:
     """AED detector (detector.py:109-143): Darknet-21 + YOLOPAFPN +
     YOLOXHead. stem: one of _STEMS. input_channels is the volume's 2K (per
     subpixel block for the p64 stems).
     Parameters are initialised from `generator` (a fresh seed-0 generator
-    when None); the model is in eval mode, on the CPU, in f32."""
+    when None); the model is on the CPU, in f32, in eval mode, or in
+    training mode when `train`. dropout_rate is the BFM stems' dropout in
+    training (stems.py:100), taken by every BFM stem; the kernel stems
+    refuse training."""
     if family != "aed":
         raise ValueError(f"the port builds family 'aed' only, got {family!r}")
     if stem not in _STEMS:
         raise ValueError(f"the port has stems {sorted(_STEMS)}, got {stem!r}")
-    backbone = Darknet(_STEMS[stem], input_channels,
+    stem_cls = _STEMS[stem]
+    if issubclass(stem_cls, _BFMChain):
+        stem_cls = partial(stem_cls, dropout_rate=dropout_rate)
+    backbone = Darknet(stem_cls, input_channels,
                        stem_out_channels=stem_out_channels,
                        out_channels=tuple(in_channels), act=act)
     neck = YOLOPAFPN(depth=depth, in_channels=tuple(in_channels), act=act)
@@ -107,7 +117,7 @@ def build_detector(num_classes: int, *, family: str = "aed",
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_parameters_(model, generator)
-    return model.eval()
+    return model.train(train)
 
 
 def eval_decode(level_outs, strides):
@@ -122,5 +132,12 @@ def eval_decode(level_outs, strides):
     return decode_outputs(outputs, x_shift, y_shift, stride)
 
 
-__all__ = ["EventDetector", "build_detector", "eval_decode",
+def detector_loss(level_outs, labels, strides, num_classes, radius):
+    """The SimOTA training loss of the head maps (detector.py:156-158)."""
+    hw = [tuple(o.shape[1:3]) for o in level_outs]
+    return compute_losses(level_outs, labels, hw, strides, num_classes,
+                          radius)
+
+
+__all__ = ["EventDetector", "build_detector", "detector_loss", "eval_decode",
            "init_parameters_"]

@@ -249,8 +249,10 @@ def packed_weights(params, device) -> torch.Tensor:
     tensors stay as they were: weight norm and pack are some 35 small
     operations, more host time than the kernel takes. The key is each
     tensor's identity, storage and version counter, which every in-place
-    update bumps (an edit through `.data` does not, and is not seen).
-    Inference tensors keep no version counter and are packed every call."""
+    update bumps (an edit through `.data` does not, and is not seen; nor
+    does torch.optim's fused=True step, so the port's optimisers keep
+    foreach, which does). Inference tensors keep no version counter and
+    are packed every call."""
     tensors = tuple(params[k] for k in sorted(params))
     if any(t.is_inference() for t in tensors):
         return _pack(chain_weights(params), device)
@@ -274,6 +276,17 @@ def _launch(entry: str, vol, params, out, B, H2, W2):
     return out
 
 
+def _refuse_grad(entry: str, vol, params) -> None:
+    """Kernels B4 and B7 have no backward, as the JAX package cannot
+    differentiate their pallas_call: raise where a gradient is asked for,
+    on any device, instead of running the (differentiable) twin."""
+    if torch.is_grad_enabled() and (vol.requires_grad or any(
+            p.requires_grad for p in params.values())):
+        raise RuntimeError(f"{entry} has no backward: call it under "
+                           f"torch.no_grad() or torch.inference_mode(), and "
+                           f"train the 'bfm' stem instead")
+
+
 def bfm_chain_apply_folded(vol_f, params, *, act: str = "silu",
                            width: int):
     """The chain on the folded p64 volume (pallas_stem.py:135-205).
@@ -286,8 +299,10 @@ def bfm_chain_apply_folded(vol_f, params, *, act: str = "silu",
     [lvl0[0:4] | lvl1[0:4] | lvl2[0:4]] per subpixel), then 16 zeros.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (and
-    count the launch in `bfm_chain_apply_folded.launches`) or raise.
+    count the launch in `bfm_chain_apply_folded.launches`) or raise. Both
+    raise where a gradient is asked for (`_refuse_grad`).
     """
+    _refuse_grad("bfm_chain_apply_folded", vol_f, params)
     if vol_f.device.type == "cpu":
         return bfm_chain_apply_folded_plain(vol_f, params, act=act,
                                             width=width)
@@ -314,8 +329,10 @@ def bfm_chain_apply(vol, params, *, act: str = "silu"):
     Returns h (B, H2, W2, 48) bf16, ready for the stem's 3x3 conv.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (and
-    count the launch in `bfm_chain_apply.launches`) or raise.
+    count the launch in `bfm_chain_apply.launches`) or raise. Both raise
+    where a gradient is asked for (`_refuse_grad`).
     """
+    _refuse_grad("bfm_chain_apply", vol, params)
     if vol.device.type == "cpu":
         return bfm_chain_apply_plain(vol, params, act=act)
     if vol.device.type != "cuda":

@@ -13,6 +13,11 @@ blocks [tl, bl, tr, br], and `BinsFusionModuleFolded` its folded form
 (N, H/2, (W/2)*64). Every BFM variant has the parameters of
 `BinsFusionModule` under the same state_dict names and shapes, so one
 checkpoint serves them all.
+
+`BinsFusionModule` and `BinsFusionModulePatched` train, with the stem's
+dropout. The stems whose chain runs in kernel B4 or B7 serve only: like
+the JAX package, which cannot differentiate a `pallas_call`, they raise in
+training mode or when a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -79,6 +84,32 @@ class TiledConv1x1(nn.Module):
                         self.bias.repeat(self.tile), groups=self.tile)
 
 
+class Dropout(nn.Module):
+    """flax's nn.Dropout (stems.py:124, :126): in training, each element
+    is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
+    zeroed; the identity at eval or at rate 0. The masks come from
+    `generator`, a torch.Generator on the input's device that the train
+    step sets (F.dropout takes none), so one seed gives one set of masks."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training needs its generator set "
+                               "(the train step sets it)")
+        keep = 1.0 - self.rate
+        # the uniforms in x's memory layout (channels_last on the card),
+        # so the select runs as one contiguous pass
+        u = torch.empty_like(x, dtype=torch.float32)
+        mask = u.uniform_(generator=self.generator) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
 class _BFMChain(nn.Module):
     """The BFM channel chain's modules (convs_i, trans_up, trans_down) under
     the canonical names and shapes, shared by every BFM stem. tile=4 applies
@@ -86,8 +117,10 @@ class _BFMChain(nn.Module):
     runs in kernel B4 or B7 hand the kernel `chain_params()`."""
 
     def __init__(self, in_channels: int, embed_dim: int, act: str,
-                 tile: int = 1):
+                 tile: int = 1, dropout_rate: float = 0.1):
         super().__init__()
+        self.drop_up = Dropout(dropout_rate)
+        self.drop_down = Dropout(dropout_rate)
         tc = in_channels // 2
         self.levels = int(log2(tc))
         self.embed_dim = embed_dim
@@ -109,16 +142,31 @@ class _BFMChain(nn.Module):
         return {k: v for k, v in self.named_parameters()
                 if not k.startswith("conv.")}
 
+    def mix(self, h):
+        """The MLP channel mixer with its residual and dropout
+        (stems.py:122-127)."""
+        y = self.drop_up(self.act(self.trans_up(h)))
+        return h + self.drop_down(self.trans_down(y))
+
+    def refuse_training(self):
+        """The kernel stems serve only: raise in training mode."""
+        if self.training:
+            raise RuntimeError(f"{type(self).__name__} runs its chain in a "
+                               f"CUDA kernel and does not train; train the "
+                               f"'bfm' stem (one checkpoint serves both)")
+
 
 class BinsFusionModule(_BFMChain):
-    """BFM stem (stems.py:90-134). in_channels must be 2K. Dropout is a
-    no-op at eval and is not modelled."""
+    """BFM stem (stems.py:90-134). in_channels must be 2K. dropout_rate
+    (0.1 in the JAX package) applies in training only."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
-                 act: str = "silu", embed_dim: int = 4):
+                 act: str = "silu", embed_dim: int = 4,
+                 dropout_rate: float = 0.1):
         if ksize != 3:
             raise ValueError("the port's BFM stem is the fused ksize=3 form")
-        super().__init__(in_channels, embed_dim, act)
+        super().__init__(in_channels, embed_dim, act,
+                         dropout_rate=dropout_rate)
         self.conv = BaseConv(self.mixer, out_channels, 3, act=act,
                              patchify_fused=True)
 
@@ -129,20 +177,21 @@ class BinsFusionModule(_BFMChain):
         for i in range(self.levels):
             h = F.relu(getattr(self, f"convs_{i}")(h))
             xout.append(h[:, :self.embed_dim])
-        h = torch.cat(xout, dim=1)
-        h = h + self.trans_down(self.act(self.trans_up(h)))
-        return self.conv(h)
+        return self.conv(self.mix(torch.cat(xout, dim=1)))
 
 
 class BinsFusionModulePatched(_BFMChain):
     """BFM stem for the patchified volume (N, H/2, W/2, 4*2K), in plain ops
     (stems.py:137-191): the 1x1 chain runs per subpixel block with shared
     weights (tiled), then a plain 3x3 conv over the 4*12 channels, which
-    equals the canonical BFM on the raw grid. in_channels is 2K."""
+    equals the canonical BFM on the raw grid. in_channels is 2K;
+    dropout_rate as in BinsFusionModule."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
-                 act: str = "silu", embed_dim: int = 4):
-        super().__init__(in_channels, embed_dim, act, tile=S)
+                 act: str = "silu", embed_dim: int = 4,
+                 dropout_rate: float = 0.1):
+        super().__init__(in_channels, embed_dim, act, tile=S,
+                         dropout_rate=dropout_rate)
         self.conv = BaseConv(S * self.mixer, out_channels, ksize, act=act)
 
     def forward(self, x):
@@ -154,22 +203,25 @@ class BinsFusionModulePatched(_BFMChain):
             h = F.relu(getattr(self, f"convs_{i}")(h))
             xout.append(h.view(N, S, -1, H2, W2)[:, :, :self.embed_dim])
         h = torch.cat(xout, dim=2).reshape(N, -1, H2, W2)
-        h = h + self.trans_down(self.act(self.trans_up(h)))
-        return self.conv(h)
+        return self.conv(self.mix(h))
 
 
 class BinsFusionModulePatchedKernel(_BFMChain):
     """BinsFusionModulePatched with the chain in kernel B7
     (stems.py:224-260), at eval; then a plain 3x3 BaseConv over its 48
-    channels."""
+    channels. It takes dropout_rate as the other BFM stems do, and never
+    applies it: it refuses training."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
-                 act: str = "silu", embed_dim: int = 4):
-        super().__init__(in_channels, embed_dim, act)
+                 act: str = "silu", embed_dim: int = 4,
+                 dropout_rate: float = 0.1):
+        super().__init__(in_channels, embed_dim, act,
+                         dropout_rate=dropout_rate)
         self.conv = BaseConv(S * self.mixer, out_channels, ksize, act=act)
 
     def forward(self, x):
         """x: (N, H/2, W/2, 4*2K) → (N, out, H/2, W/2)."""
+        self.refuse_training()
         h = bfm_chain_apply(x.to(torch.bfloat16), self.chain_params(),
                             act=self.act_name)
         return self.conv(_nchw(h).to(self.trans_up.weight.dtype))
@@ -211,17 +263,21 @@ class BinsFusionModuleFolded(_BFMChain):
     """BFM stem for the folded patchified volume (N, H/2, (W/2)*64)
     (stems.py:263-310), at eval: the chain in kernel B4, which writes 48
     channels and 16 zeros per pixel, then the canonical (O, 48, 3, 3) conv
-    zero-padded to 64 input channels."""
+    zero-padded to 64 input channels. dropout_rate as in
+    BinsFusionModulePatchedKernel."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
-                 act: str = "silu", embed_dim: int = 4):
-        super().__init__(in_channels, embed_dim, act)
+                 act: str = "silu", embed_dim: int = 4,
+                 dropout_rate: float = 0.1):
+        super().__init__(in_channels, embed_dim, act,
+                         dropout_rate=dropout_rate)
         self.pixel_channels = S * in_channels
         self.conv = _PadInBaseConv(S * self.mixer, out_channels, ksize,
                                    act=act)
 
     def forward(self, x_f):
         """x_f: (N, H/2, (W/2)*64) → (N, out, H/2, W/2)."""
+        self.refuse_training()
         N, H2, WF = x_f.shape
         W2 = WF // self.pixel_channels
         h = bfm_chain_apply_folded(x_f.to(torch.bfloat16),

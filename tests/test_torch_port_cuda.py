@@ -17,23 +17,31 @@ where the twin sums in another order), B4's pad channels exactly zero.
 
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from frlw_evd_tpu_torch import pipeline
+from frlw_evd_tpu_torch import pipeline, train
 from frlw_evd_tpu_torch.encode import (
     scatter_cnt_tsum, scatter_cnt_tsum_pallas, scatter_cnt_tsum_pallas_plain,
     scatter_cnt_tsum_pallas_sorted, scatter_cnt_tsum_pallas_sorted_plain,
     scatter_cnt_tsum_plain, taf_update_leaky, taf_update_leaky_plain,
     taf_update_leaky_raw, taf_update_leaky_raw_plain, taf_update_leaky_v2,
     taf_update_leaky_v2_plain)
-from frlw_evd_tpu_torch.encode.scatter import event_cells
+from frlw_evd_tpu_torch.encode.scatter import (MAX_SLOTS, event_cells,
+                                               slot_chunks)
 from frlw_evd_tpu_torch.models import build_detector
 from frlw_evd_tpu_torch.models.stem_chain import (
     bfm_chain_apply, bfm_chain_apply_folded, bfm_chain_apply_folded_plain,
     bfm_chain_apply_plain)
 from frlw_evd_tpu_torch.models.stems import BinsFusionModuleFolded
+from frlw_evd_tpu_torch.train import adam
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -317,7 +325,7 @@ def test_chain_kernels_match_twins(cuda, folded, shape, monkeypatch):
         for name, p in stem.named_parameters():
             p.normal_(0.1 if name.endswith("bias") else 0.0, 0.3,
                       generator=g)
-    params = {k: v.to(cuda) for k, v in stem.chain_params().items()}
+    params = {k: v.detach().to(cuda) for k, v in stem.chain_params().items()}
     vol = torch.rand(B, H2, W2, 64, generator=g).to(cuda, torch.bfloat16)
     if folded:
         fn, plain = bfm_chain_apply_folded, bfm_chain_apply_folded_plain
@@ -345,18 +353,40 @@ def test_chain_kernels_match_twins(cuda, folded, shape, monkeypatch):
         assert torch.equal(pad, torch.zeros_like(pad))
 
 
-def test_histograms_refuse_more_slots_than_a_count_holds(cuda):
-    """B1 and B6 keep a cell's count in 17 bits: E >= 2^17 raises."""
-    E = 2 ** 17
-    with pytest.raises(ValueError, match="slots a stream"):
-        scatter_cnt_tsum(torch.zeros(1, E, 4, device=cuda),
-                         torch.zeros(1, dtype=torch.int32, device=cuda),
-                         height=4, width=4)
-    with pytest.raises(ValueError, match="slots a stream"):
-        scatter_cnt_tsum_pallas_sorted(
-            torch.zeros(1, E, dtype=torch.int32, device=cuda),
-            torch.zeros(1, E, device=cuda),
-            torch.zeros(1, E, dtype=torch.bool, device=cuda), 8)
+@pytest.mark.parametrize("E", [2 ** 17, 2 ** 19])
+def test_histograms_take_more_slots_than_a_count_holds(cuda, E):
+    """A cell's count has 17 bits, so B1 and B6 launch once a chunk of at
+    most MAX_SLOTS slots and add the chunks' planes: at E = 2^17 and 2^19
+    on 3 streams (uniform, one cell, stopping inside the last chunk) they
+    match their twins with the gates above (B1's counts and any_ev exact,
+    t-sums within cnt^2 * 2^-23; B6 bit for bit) and launch once a chunk."""
+    H, W = SENSOR
+    ev, nv = pipeline.synth_events(np.random.default_rng(4), 1, 3, E, SENSOR)
+    ev, nv = ev[0], nv[0]
+    ev[1, :, 0], ev[1, :, 1], ev[1, :, 3] = 7.0, 5.0, 1.0
+    nv[2] = E - 5
+    ev, nv = torch.from_numpy(ev).to(cuda), torch.from_numpy(nv).to(cuda)
+    chunks = len(slot_chunks(E))
+    assert chunks == -(-E // MAX_SLOTS) > 1
+    before = scatter_cnt_tsum.launches
+    cnt, tsum, anyv = scatter_cnt_tsum(ev, nv, height=H, width=W)
+    torch.cuda.synchronize()
+    assert scatter_cnt_tsum.launches == before + chunks
+    p_cnt, p_tsum, p_any = scatter_cnt_tsum_plain(ev, nv, height=H, width=W)
+    torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
+    assert anyv.tolist() == p_any.tolist() == [1, 1, 1]
+    assert int(cnt[1].max()) == E and int(cnt[2].sum()) == E - 5
+    assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
+
+    idx, tv, valid = event_cells(ev, nv, H, W)
+    before = scatter_cnt_tsum_pallas_sorted.launches
+    cnt6, tsum6 = scatter_cnt_tsum_pallas_sorted(idx, tv, valid, H * W * 2)
+    torch.cuda.synchronize()
+    assert scatter_cnt_tsum_pallas_sorted.launches == before + chunks
+    p_cnt6, p_tsum6 = scatter_cnt_tsum_pallas_sorted_plain(idx, tv, valid,
+                                                           H * W * 2)
+    assert torch.equal(cnt6, p_cnt6) and torch.equal(cnt6, p_cnt)
+    assert torch.equal(tsum6.view(torch.int32), p_tsum6.view(torch.int32))
 
 
 def test_wrappers_raise_on_misaligned_events(cuda):
@@ -398,3 +428,45 @@ def test_pipeline_on_card_matches_cpu(cuda):
             vols["cpu"].to(cuda))
         assert torch.isfinite(gpu_dets).all()
         torch.testing.assert_close(gpu_keep.cpu(), cpu_keep)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 19: in f32 (no TF32) the losses rtol 2e-4 and
+    the running statistics atol 1e-5; with the network in f64 on both, each
+    gradient leaf within 1e-6 of its largest magnitude and the parameters
+    after the step atol 1e-6."""
+    err = chip_smoke.small_train_errors(train, build_detector, cuda)
+    for k, gate in chip_smoke.SMALL_TRAIN_GATES.items():
+        assert err[k] <= gate, (k, err[k])
+
+
+def test_folded_stem_sees_optimizer_updates(cuda):
+    """The bfm_folded stem keeps its packed B4 weights while its parameter
+    tensors' version counters stay put; an optimiser step in place bumps
+    them, so after three Adam steps B4 runs on the new weights (its twin
+    on the current parameters agrees, the chain's output moved)."""
+    model = build_detector(2, stem="bfm_folded",
+                           generator=torch.Generator().manual_seed(0),
+                           in_channels=(16, 16, 16), stem_out_channels=8,
+                           head_width=16).to(cuda)
+    params = model.backbone.stem.chain_params()
+    vol = torch.rand(2, 8, 12 * 64, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        first = bfm_chain_apply_folded(vol, params, width=12)
+    versions = {k: p._version for k, p in params.items()}
+    opt = adam(0.1).make(model.parameters())
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(3):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, device=cuda, generator=g)
+        opt.step()
+    assert all(p._version > versions[k] for k, p in params.items())
+    before = bfm_chain_apply_folded.launches
+    with torch.no_grad():
+        out = bfm_chain_apply_folded(vol, params, width=12)
+        want = bfm_chain_apply_folded_plain(vol, params, width=12)
+    torch.cuda.synchronize()
+    assert bfm_chain_apply_folded.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert (out.float() - first.float()).abs().max() > 0.1

@@ -153,13 +153,48 @@ def test_fixed_point_sum_equals_twin_bit_for_bit(source, layout):
 
 def test_packed_fields_hold_the_serving_sums():
     """The addend limit 2^(21 - ceil(log2 E)) admits every t - 1 in [-1, 0]
-    for every E the kernels take (E <= 2^17 - 1: 32 at the gen4 E = 65536),
-    keeps a cell's t-sum field below 2^45 at LSB 2^-24, and its count below
-    2^17, clear of the poison bit."""
+    for every E a launch takes (E <= MAX_SLOTS = 2^17 - 1: 32 at the gen4
+    E = 65536, 16 for a whole chunk), keeps a cell's t-sum field below 2^45
+    at LSB 2^-24, and its count below 2^17, clear of the poison bit. The
+    wrappers cut longer streams (the JAX fetcher pads to 2^19) into chunks
+    that a launch takes."""
     for E in (1, 16384, 65536, MAX_SLOTS):
         limit = 2.0 ** (21 - int(np.ceil(np.log2(E))))
         assert limit >= 1.0 and E * limit * 2.0 ** 24 <= 2.0 ** 45
         assert E < 2 ** 17
+    for E in (1, MAX_SLOTS, MAX_SLOTS + 1, 2 ** 17, 2 ** 19, 10 ** 6):
+        chunks = scatter.slot_chunks(E)
+        assert chunks[0][0] == 0 and chunks[-1][1] == E
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(0 < hi - lo <= MAX_SLOTS for lo, hi in chunks)
+        assert len(chunks) == -(-E // MAX_SLOTS)
+
+
+@pytest.mark.parametrize("layout", ["folded", "p64"])
+def test_twins_take_more_slots_than_a_launch(layout):
+    """Past MAX_SLOTS the twins of B1 and B6 sum chunk by chunk, as the
+    wrappers launch the kernels: counts and any_ev equal the one-pass
+    histogram's, t-sums within one f32 rounding a chunk, and the two twins
+    equal bit for bit. Stream 1 stops inside the third chunk, stream 2 has
+    no event; E = 2^18 + 5."""
+    H, W = 8, 10
+    E = 2 ** 18 + 5
+    ev, nv = pipeline.synth_events(np.random.default_rng(3), 1, 3, E, (H, W))
+    ev, nv = torch.from_numpy(ev[0]), torch.from_numpy(nv[0])
+    nv[1], nv[2] = 2 * MAX_SLOTS + 3, 0
+    kw = dict(height=H, width=W, layout=layout)
+    cnt, tsum, anyv = scatter.scatter_cnt_tsum_plain(ev, nv, **kw)
+    one = scatter._plain_event_histogram(ev, nv, H, W, layout)
+    assert torch.equal(cnt, one[0]) and torch.equal(anyv, one[2])
+    assert anyv.tolist() == [1, 1, 0]
+    assert int(cnt[1].sum()) == 2 * MAX_SLOTS + 3
+    ulp = torch.finfo(torch.float32).eps * one[1].abs()
+    assert ((tsum - one[1]).abs() <= 3 * ulp).all()
+    idx, tv, valid = event_cells(ev, nv, H, W, layout)
+    p_cnt, p_tsum = scatter_cnt_tsum_pallas_sorted_plain(idx, tv, valid,
+                                                         H * W * 2)
+    assert torch.equal(p_cnt, cnt)
+    assert torch.equal(p_tsum.view(torch.int32), tsum.view(torch.int32))
 
 
 def test_packed_poison_marks_only_its_cell():
