@@ -57,8 +57,13 @@ Phases (any failure exits non-zero; no phase catches and continues):
      with one frozen stream (state exact, volume within one bf16 ulp), and
      against B3 on the same B1 planes, bit for bit;
  14. kernel B8 (scatter_cnt_tsum_pallas) on its own path, the folded cells
-     of the GEN1 uniform and skewed windows, then against its twin: counts
-     exact, t-sums within cnt^2 * 2^-23; timed beside B1 and index_add_;
+     of the GEN1 uniform and skewed windows, then against its twin on
+     those, a one-cell set and the uniform set with t scaled by 1e6:
+     counts exact, t-sums within cnt^2 * 2^-23 (times max|t| of the
+     scaled set), every output cell written (poisoned blocks); the cluster
+     tiling and the atomic instructions of its SASS printed; timed beside
+     B1 and index_add_, and under two other tilings (per-block tiles, two
+     clusters of 8 a stream);
  15. the 1 Mpx path through the new entries at full width: make_pipeline_p64
      (scatter="sorted") with the bfm_folded AED for 3 windows carrying
      state, then taf_stream_step_kernel_p64(precise=True) feeding the same
@@ -83,7 +88,24 @@ Phases (any failure exits non-zero; no phase catches and continues):
  20. B1 and B6 at E = 2^19 slots a stream (the JAX fetcher's padding) on 4
      streams at the gen4 sensor, uniform and one-cell: one launch a chunk
      of at most 2^17 - 1 slots, then B1 against its twin with phase 2's
-     gates and B6 bit for bit with its twin; each timed.
+     gates and B6 bit for bit with its twin; each timed;
+ 21. the int8 conv kernel (int8_conv2d) against its twin at every distinct
+     int8 site shape of the GEN1 AED at B = 128 (k, stride, Cin, Cout,
+     H x W): int32 sums equal and bf16 outputs equal bit for bit; each
+     site's time beside its bound (the larger of its bytes over the HBM
+     rate and 2 * MACs over the dense int8 tensor-core rate), torch._int_mm
+     on the same codes (1x1 sites: the same int32 function) and cuDNN's
+     bf16 conv of the site (a yardstick, not the same function); the SASS
+     of libint8_conv.so must hold IMMA and no STL / LDL;
+ 22. the GEN1 int8 serving path at full width (phase 4's AED with its
+     BatchNorm scales from U(1, 1.75), int8_gen1_model says why; bf16,
+     calibrated on the live encode output by pipeline.calibrate_pipeline
+     as bench.py --dtype int8 does): 6 windows carrying state, int8_conv2d
+     launched (sites) x (windows) times and B1, B2 on every window,
+     outputs finite; every site within relative L2 0.04 of its bf16 conv
+     on the same input and the head maps within 0.08 of the bf16 maps per
+     level (tests/test_quantize.py's gates); encode_transform, detect and
+     windows/s of the int8 and the bf16 path in turns.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -99,6 +121,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -118,6 +141,9 @@ F32_FLOP_PER_S = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H200": 67e12,
                   "H100": 67e12}
 BF16_TENSOR_FLOP_PER_S = {"H100 PCIe": 756e12, "H100 NVL": 835e12,
                           "H200": 989e12, "H100": 989e12}
+# dense int8 tensor-core rate (OP/s), twice the bf16 rate on each part
+INT8_TENSOR_OPS_PER_S = {k: 2 * v for k, v in BF16_TENSOR_FLOP_PER_S.items()}
+INT8_WINDOWS = 6
 # exp2 and reciprocal run on the special function units: 16 results per
 # clock per SM on compute capability 9.0 against 128 f32 FMAs (CUDA C++
 # Programming Guide, arithmetic instruction throughput), so the SFU rate is
@@ -344,9 +370,7 @@ def run_main_path(pipeline, counters, windows, dev, card):
     counts of its run."""
     from frlw_evd_tpu_torch.models import build_detector
 
-    model = build_detector(2, stem="bfm",
-                           generator=torch.Generator().manual_seed(0))
-    pipeline.spread_random_weights_(model, torch.Generator().manual_seed(1))
+    model = gen1_model(build_detector, pipeline)
     run = pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
                                         device=dev, dtype=torch.bfloat16)
     state = pipeline.new_state(B, GEN1_SENSOR, device=dev)
@@ -469,21 +493,26 @@ def check_update_raw(enc, ev_sets, dev, rate):
                 bound_by="bytes")
 
 
-def check_chain_sass():
-    """Phase 8's build check: the SASS of libbfm_chain.so (cuobjdump) must
-    hold tensor-core HMMA instructions and no local-memory traffic (STL /
-    LDL, which is how a register spill shows)."""
+def sass(name: str) -> str:
+    """The SASS of build/kernels/lib<name>.so, from cuobjdump."""
     from frlw_evd_tpu_torch.kernels import _build
 
     tool = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_build.so_path(
-        "bfm_chain"))], capture_output=True, text=True, check=True,
-        timeout=120).stdout
-    hmma = len(re.findall(r"\bHMMA\b", sass))
-    local = len(re.findall(r"\b(?:STL|LDL)\b", sass))
-    log(f"libbfm_chain.so SASS: {hmma} HMMA, {local} STL/LDL instructions")
-    if hmma == 0 or local:
-        raise SystemExit(f"bfm_chain: {hmma} HMMA and {local} local-memory "
+    return subprocess.run([str(tool), "-sass", str(_build.so_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+def check_mma_sass(name: str, op: str):
+    """The SASS of lib<name>.so must hold tensor-core `op` instructions
+    (HMMA, IMMA) and no local-memory traffic (STL / LDL, which is how a
+    register spill shows)."""
+    text = sass(name)
+    mma = len(re.findall(rf"\b{op}\b", text))
+    local = len(re.findall(r"\b(?:STL|LDL)\b", text))
+    log(f"lib{name}.so SASS: {mma} {op}, {local} STL/LDL instructions")
+    if mma == 0 or local:
+        raise SystemExit(f"{name}: {mma} {op} and {local} local-memory "
                          f"instructions in its SASS (want > 0 and 0)")
 
 
@@ -519,7 +548,7 @@ def check_chains(stem_chain, dev, card_name):
                   / bf16_tensor_flops(card_name))
     silu_s = (SFU_PER_SILU * stem_chain.SILU_PER_SUBPIXEL * n_sub
               / (f32_flops(card_name) / 16))
-    check_chain_sass()
+    check_mma_sass("bfm_chain", "HMMA")
     rows = {}
     for name, out_c in (("bfm_chain_apply_folded", 64),
                         ("bfm_chain_apply", 48)):
@@ -840,10 +869,14 @@ def check_update_v2(enc, ev_sets, dev, rate):
 def check_dense(enc, counters, ev_sets, rate):
     """Phase 14: B8 on its own path (launch counts zeroed, B8 through its
     entry on the folded cells of the GEN1 uniform and skewed windows, counts
-    read), then against its twin: counts exact, t-sums within cnt^2 * 2^-23
-    (shared-memory atomics add in a run-dependent order; the twin sums in
-    f64). Timed beside B1 (folded) and index_add_ in this call. Returns the
-    row and the launch counts of its path."""
+    read), then against its twin on those, a one-cell set and the uniform
+    set with t scaled by 1e6 (B1 and B6 would poison such t; B8 must not):
+    counts exact, t-sums within cnt^2 * 2^-23 * max|t| (f32 adds in a
+    run-dependent order; the twin sums in f64), every output cell written
+    (poisoned blocks). Prints the tiling and the atomic instructions of
+    the kernel's SASS (which f32 add the compiler emits). Timed beside B1
+    (folded) and index_add_ in this call. Returns the row and the launch
+    counts of its path."""
     H, W = GEN1_SENSOR
     size = H * W * 2
     cells = {name: enc.event_cells(ev, nv, H, W, "folded")
@@ -856,34 +889,89 @@ def check_dense(enc, counters, ev_sets, rate):
     launches = {k: fn.launches for k, fn in counters.items()}
     if launches["scatter_cnt_tsum_pallas"] < len(cells):
         raise SystemExit(f"B8 path did not launch its kernel: {launches}")
+    del outs
+    B = cells["uniform"][0].shape[0]
+    log(f"B8 launch: {enc.scatter.tile_plan(size).describe(size, B)}")
+    ops = re.findall(r"\b(?:ATOMS|ATOM|RED|REDUX|ATOMG)\.[A-Z0-9_.]+",
+                     sass("scatter_dense"))
+    log(f"libscatter_dense.so SASS atomics: "
+        f"{dict(sorted(Counter(ops).items()))}")
+    idx, tv, valid = cells["uniform"]
+    sets = dict(cells, one_cell=(torch.full_like(idx, 12345), tv, valid),
+                t_1e6=(idx, tv * 1e6, valid))
     err = 0.0
-    for name, (cnt, tsum) in outs.items():
-        p_cnt, p_tsum = enc.scatter_cnt_tsum_pallas_plain(*cells[name], size)
+    for name, (i_, t_, v_) in sets.items():
+        poisoned = poison(((B, size), torch.float32),
+                          ((B, size), torch.float32))
+        cnt, tsum = enc.scatter_cnt_tsum_pallas(i_, t_, v_, size)
+        torch.cuda.synchronize()
+        check_poisoned(f"B8 {name}", (cnt, tsum), poisoned)
+        p_cnt, p_tsum = enc.scatter_cnt_tsum_pallas_plain(i_, t_, v_, size)
         torch.cuda.synchronize()
         diff = (tsum - p_tsum).abs()
+        t_max = t_.abs().max().item()
         if not torch.equal(cnt, p_cnt) or not bool(
-                (diff <= p_cnt * p_cnt * 2.0 ** -23).all()):
+                (diff <= p_cnt * p_cnt * 2.0 ** -23 * max(t_max, 1.0)).all()):
             raise SystemExit(f"B8 {name}: counts equal "
                              f"{torch.equal(cnt, p_cnt)}, max |dtsum| "
                              f"{diff.max().item()}")
-        err = max(err, diff.max().item())
-        log(f"B8 {name}: counts exact ({int(p_cnt.sum().item())} events), "
-            f"max |dtsum| {diff.max().item():.3e}")
-    idx, tv, valid = cells["uniform"]
+        if t_max <= 1.0:
+            err = max(err, diff.max().item())
+        log(f"B8 {name}: counts exact ({int(p_cnt.sum().item())} events, "
+            f"max {int(p_cnt.max().item())} a cell), max |dtsum| "
+            f"{diff.max().item():.3e} (max |t| {t_max:.3g}), every cell "
+            f"written")
+        del cnt, tsum, p_cnt, p_tsum, diff
     ev, nv = ev_sets["uniform"]
-    ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas(idx, tv, valid, size))
+    ms_by_set = {name: time_ms(lambda: enc.scatter_cnt_tsum_pallas(
+        *sets[name], size)) for name in ("uniform", "skewed", "one_cell")}
+    ms = ms_by_set["uniform"]
+    tilings_ms = dense_tilings_ms(enc, idx, tv, valid, size)
     b1_ms = time_ms(lambda: enc.scatter_cnt_tsum(ev, nv, height=H, width=W))
     plain_ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_plain(
         idx, tv, valid, size), n=3, warm=1)
     library_ms = index_add_ms(idx, tv, valid, size)
     bytes_moved = idx.numel() * (4 + 4 + 1) + 2 * idx.shape[0] * size * 4
     bound_ms = bytes_moved / rate * 1e3
-    log(f"B8: {ms:.3f} ms; B1 (folded, from events) {b1_ms:.3f} ms and "
-        f"index_add_ {library_ms:.3f} ms in this call; twin {plain_ms:.3f} "
-        f"ms; bound {bound_ms:.4f} ms (bytes)")
+    log(f"B8: uniform {ms:.3f} ms, skewed {ms_by_set['skewed']:.3f}, "
+        f"one-cell {ms_by_set['one_cell']:.3f}; B1 (folded, from events) "
+        f"{b1_ms:.3f} ms and index_add_ {library_ms:.3f} ms in this call; "
+        f"twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms (bytes), "
+        f"{bound_ms / ms:.1%} of it; on the uniform set under other "
+        f"tilings: " + ", ".join(f"{k} {v:.3f} ms"
+                                 for k, v in tilings_ms.items()))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="bytes"), launches
+                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes",
+                ms_by_set=ms_by_set, tilings_ms=tilings_ms), launches
+
+
+def dense_tilings_ms(enc, idx, tv, valid, size):
+    """B8's kernel launched under tilings other than tile_plan's one
+    cluster of 8 blocks a stream at GEN1: per-block tiles (clusters of 1,
+    each block reading every slot of its stream) and two clusters of 8
+    (half the shared memory a block, so two blocks share an SM). Counts
+    checked against the twin; returns {tiling: ms}."""
+    from frlw_evd_tpu_torch.kernels import _build
+
+    B_, E_ = idx.shape
+    p_cnt, _ = enc.scatter_cnt_tsum_pallas_plain(idx, tv, valid, size)
+    cnt = torch.empty(B_, size, device=idx.device)
+    tsum = torch.empty_like(cnt)
+    out = {}
+    for name, plan in (("per-block tiles",
+                        enc.scatter.tile_plan(size, cluster=1)),
+                       ("two clusters of 8",
+                        enc.scatter.TilePlan(2, 8, -(-size // 64) * 4))):
+        def launch():
+            _build.launch("scatter_dense", "scatter_cnt_tsum_dense",
+                          (idx, tv, valid, cnt, tsum),
+                          (B_, E_, size, *plan), idx.device)
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(cnt, p_cnt):
+            raise SystemExit(f"B8 with {name}: counts differ from the twin")
+        out[name] = time_ms(launch)
+    return out
 
 
 def drive(name, encode, detect, state, counters, windows, need):
@@ -1199,6 +1287,249 @@ def check_long_streams(enc, pipeline, dev, rate):
         torch.cuda.empty_cache()
 
 
+def gen1_model(build_detector, pipeline):
+    """Phase 4's full-width GEN1 AED with its seeded random weights, f32 on
+    the CPU."""
+    model = build_detector(2, stem="bfm",
+                           generator=torch.Generator().manual_seed(0))
+    return pipeline.spread_random_weights_(model,
+                                           torch.Generator().manual_seed(1))
+
+
+def int8_site_shapes(quantize, model, input_hw):
+    """{(k, stride, Cin, Cout, H, W): sites} of the model's int8 sites, H x W
+    their input, from one forward of a zero volume under hooks."""
+    shapes = Counter()
+
+    def record(conv):
+        def hook(_module, args):
+            shapes[(conv.kernel_size[0], conv.stride[0], conv.in_channels,
+                    conv.out_channels, *args[0].shape[2:])] += 1
+        return hook
+    handles = [m.register_forward_pre_hook(record(m))
+               for m in quantize.eligible_sites(model).values()]
+    p = next(model.parameters())
+    with torch.inference_mode():
+        model(torch.zeros(1, *input_hw, 2 * K, dtype=p.dtype,
+                          device=p.device))
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def check_int8_conv(quantize, build_detector, pipeline, rate, card_name):
+    """Phase 21: int8_conv2d against its twin at every distinct int8 site
+    shape of the GEN1 AED at B = 128, on a bf16 channels_last activation
+    N(0, 1) with sx = 3 / 127 (|x| > 3 clips), codes U[-127, 127]
+    and dequant scales U(0, 1e-3): int32 sums equal, bf16 outputs bit for
+    bit. Each site's time beside its bound, the twin, torch._int_mm on the
+    same codes (1x1 sites, checked equal to the sums) and cuDNN's bf16
+    conv. Returns the row: per-window sums over the model's sites."""
+    int8_ops = _rate(INT8_TENSOR_OPS_PER_S, card_name)
+    model = gen1_model(build_detector, pipeline).to("cuda", torch.bfloat16)
+    shapes = int8_site_shapes(quantize, model, GEN1_INPUT)
+    del model
+    check_mma_sass("int8_conv", "IMMA")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    totals = Counter()
+    by_site = []
+    for (k, s, cin, cout, h, w), n in sorted(shapes.items()):
+        x = torch.randn(B, cin, h, w, device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        inv = 127.0 / 3.0
+        wq = torch.randint(-127, 128, (cout, k, k, cin), device="cuda",
+                           generator=g, dtype=torch.int8)
+        scale = torch.rand(cout, device="cuda", generator=g) * 1e-3
+        out, acc = quantize.int8_conv2d(x, wq, scale, inv, stride=s,
+                                        return_acc=True)
+        p_out, p_acc = quantize.int8_conv2d_plain(x, wq, scale, inv,
+                                                  stride=s, return_acc=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, p_acc) and torch.equal(out, p_out)):
+            raise SystemExit(f"int8_conv2d k{k} s{s} {cin}->{cout} {h}x{w}: "
+                             f"sums equal {torch.equal(acc, p_acc)}, outputs "
+                             f"bitwise equal {torch.equal(out, p_out)}")
+        del p_out, p_acc
+        ms = time_ms(lambda: quantize.int8_conv2d(x, wq, scale, inv,
+                                                  stride=s))
+        plain_ms = time_ms(lambda: quantize.int8_conv2d_plain(
+            x, wq, scale, inv, stride=s), n=2, warm=1)
+        w_bf = torch.randn(cout, cin, k, k, device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        cudnn_ms = time_ms(lambda: torch.nn.functional.conv2d(
+            x, w_bf, stride=s, padding=(k - 1) // 2))
+        int_mm_ms = None
+        if k == 1 and s == 1:
+            a = quantize.quantize_activation(x, inv).to(torch.int8).permute(
+                0, 2, 3, 1).reshape(-1, cin)
+            b = wq.view(cout, cin).t()
+            if not torch.equal(torch._int_mm(a, b),
+                               acc.permute(0, 2, 3, 1).reshape(-1, cout)):
+                raise SystemExit(f"torch._int_mm differs from int8_conv2d's "
+                                 f"sums at {cin}->{cout} {h}x{w}")
+            int_mm_ms = time_ms(lambda: torch._int_mm(a, b))
+            totals["ms_1x1"] += n * ms
+            totals["int_mm_1x1"] += n * int_mm_ms
+            del a, b
+        ho, wo = out.shape[2:]
+        macs = B * ho * wo * cout * cin * k * k
+        nbytes = x.numel() * 2 + wq.numel() + scale.numel() * 4 + out.numel() * 2
+        bound = max(nbytes / rate, 2 * macs / int8_ops) * 1e3
+        by = "operations" if 2 * macs / int8_ops > nbytes / rate else "bytes"
+        log(f"int8_conv2d k{k} s{s} {cin}->{cout} {h}x{w} (x{n} a window): "
+            f"{ms:.4f} ms, bound {bound:.4f} ({by}, {bound / ms:.1%}), twin "
+            f"{plain_ms:.3f}, _int_mm "
+            + (f"{int_mm_ms:.4f}" if int_mm_ms is not None else "-")
+            + f", cuDNN bf16 {cudnn_ms:.4f}; sums equal, outputs bitwise")
+        by_site.append(dict(k=k, stride=s, cin=cin, cout=cout, hw=[h, w],
+                            sites=n, ms=ms, bound_ms=bound, bound_by=by,
+                            plain_ms=plain_ms, int_mm_ms=int_mm_ms,
+                            cudnn_bf16_ms=cudnn_ms))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("cudnn", cudnn_ms), ("bytes", nbytes),
+                       ("ops", 2 * macs)):
+            totals[key] += n * v
+        del x, wq, out, acc, w_bf
+        torch.cuda.empty_cache()
+    t_bytes, t_ops = totals["bytes"] / rate * 1e3, totals["ops"] / int8_ops * 1e3
+    log(f"int8_conv2d per window ({sum(shapes.values())} sites, "
+        f"{len(shapes)} shapes): {totals['ms']:.3f} ms, bound "
+        f"{max(t_bytes, t_ops):.3f} (bytes {t_bytes:.3f}, operations "
+        f"{t_ops:.3f}), cuDNN bf16 {totals['cudnn']:.3f}; 1x1 sites "
+        f"{totals['ms_1x1']:.3f} ms against _int_mm {totals['int_mm_1x1']:.3f}")
+    return dict(max_abs_err=0.0, ms=totals["ms"], plain_ms=totals["plain_ms"],
+                library_ms=None, bound_ms=max(t_bytes, t_ops),
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                cudnn_bf16_ms=totals["cudnn"], ms_1x1=totals["ms_1x1"],
+                int_mm_1x1_ms=totals["int_mm_1x1"], by_site=by_site)
+
+
+def int8_gen1_model(build_detector, pipeline):
+    """Phase 4's AED with its BatchNorm scales drawn from U(1, 1.75) in
+    place of U(1, 2). Random weights have no trained structure, and the
+    head-map gate only means something between two regimes of this 61-site
+    deep net: with the scales at 1 (the init) the maps are bias-dominated
+    and barely move; at U(1, 2) the net amplifies the 1-2% error of every
+    site (JAX's per-site regime) to 0.095 at stride 32 on the card. At
+    U(1, 1.75) the maps carry signal (NMS suppresses boxes) and int8 moves
+    them 0.03-0.05 (PERF.md, section 6)."""
+    model = gen1_model(build_detector, pipeline)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.weight.uniform_(1.0, 1.75, generator=g)
+    return model
+
+
+def head_maps_rel_l2(model, vol, ctx):
+    """Relative L2 of each level's head maps with and without `ctx`."""
+    with torch.inference_mode():
+        base = [o.double() for o in model(vol)]
+        with ctx:
+            quant = [o.double() for o in model(vol)]
+    return [((q - b).norm() / b.norm()).item() for q, b in zip(quant, base)]
+
+
+def int8_site_errors(model, vol, ctx):
+    """{key: relative L2 of the site's int8 conv against its own conv} on
+    the unquantized forward's inputs, every site on the reference path
+    (tests/test_quantize.py:140-159)."""
+    errs = {}
+
+    def compare(key, site):
+        def hook(_module, args, out):
+            q = site(args[0]).double()
+            errs[key] = ((q - out.double()).norm() / out.double().norm()
+                         ).item()
+        return hook
+    handles = [conv.register_forward_hook(compare(key, site))
+               for key, (conv, site) in ctx.sites.items()]
+    with torch.inference_mode():
+        model(vol)
+    for h in handles:
+        h.remove()
+    return errs
+
+
+def run_int8_path(pipeline, quantize, build_detector, counters, windows,
+                  dev, card):
+    """Phase 22: the GEN1 int8 serving path at full width (int8_gen1_model,
+    bf16), calibrated on the live encode output of windows[:2]
+    (pipeline.calibrate_pipeline), then INT8_WINDOWS windows carrying
+    state; every site within relative L2 0.04 of its bf16 conv and the
+    head maps within 0.08 of bf16's per level; int8 and bf16 timed in
+    turns. Returns the launch counts of the int8 run."""
+    model = int8_gen1_model(build_detector, pipeline)
+    f32_state = {k: v.clone() for k, v in model.state_dict().items()}
+    bf16 = pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
+                                         device=dev)
+    state = pipeline.new_state(B, GEN1_SENSOR, device=dev)
+    quant = pipeline.calibrate_pipeline(bf16, model, f32_state, state,
+                                        windows[:2])
+    sites = len(quantize.eligible_sites(model))
+    if set(quant[0]) != set(quantize.eligible_sites(model)):
+        raise SystemExit(f"int8: {len(quant[0])} sites calibrated of {sites}")
+    int8 = pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
+                                         device=dev, quant=quant)
+    runs = windows[2:2 + INT8_WINDOWS]
+    for fn in counters.values():
+        fn.launches = 0
+    for i, (ev, nv) in enumerate(runs):
+        state, vol = int8.stages["encode_transform"](state, ev, nv)
+        dets, keep = int8.stages["detect"](vol)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(state).all() and torch.isfinite(vol).all()
+                and torch.isfinite(dets).all()):
+            raise SystemExit(f"int8 path window {i}: non-finite output")
+        if dets.shape != (B, 100, 6):
+            raise SystemExit(f"int8 path window {i}: dets {dets.shape}")
+        log(f"int8 path window {i}: kept {int(keep.sum().item())} of "
+            f"{int((dets[..., 5] > 0).sum().item())} boxes past conf 0.3 "
+            f"over {B} streams, every output finite")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if (launches["int8_conv2d"] != sites * len(runs)
+            or min(launches[k] for k in ("scatter_cnt_tsum",
+                                         "taf_update_leaky")) < len(runs)):
+        raise SystemExit(f"int8 path: {sites} sites x {len(runs)} windows, "
+                         f"launches {launches}")
+    ctx = quantize.int8_ctx(model, *quant)
+    errs = int8_site_errors(model, vol, ctx)
+    worst = max(errs, key=errs.get)
+    log(f"int8 sites against their bf16 convs, relative L2: median "
+        f"{sorted(errs.values())[len(errs) // 2]:.4f}, largest "
+        f"{errs[worst]:.4f} ({worst}), smallest {min(errs.values()):.4f}")
+    if len(errs) != sites or not all(1e-4 < e < 0.04 for e in errs.values()):
+        raise SystemExit(f"int8 sites beyond relative L2 0.04: {errs}")
+    rel = head_maps_rel_l2(model, vol, ctx)
+    log(f"int8 head maps against bf16, relative L2 per level: "
+        + ", ".join(f"{r:.4f}" for r in rel))
+    if not all(0 < r < 0.08 for r in rel):
+        raise SystemExit(f"int8 head maps beyond relative L2 0.08: {rel}")
+
+    ev, nv = windows[0]
+    times = {}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        run = int8 if name == "int8" else bf16
+        enc_ms = time_ms(lambda: run.stages["encode_transform"](state, ev,
+                                                                 nv), n=5)
+        det_ms = time_ms(lambda: run.stages["detect"](vol), n=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            state, _ = run(state, *runs[i % len(runs)])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 10 * 1e3
+        times.setdefault(name, []).append((enc_ms, det_ms, step_ms))
+    for name, rows in times.items():
+        log(f"GEN1 {name} path on {card}: encode_transform "
+            + " / ".join(f"{r[0]:.3f}" for r in rows) + " ms, detect "
+            + " / ".join(f"{r[1]:.3f}" for r in rows) + " ms, run_step "
+            + " / ".join(f"{r[2]:.3f} ms = {B / r[2] * 1e3:.1f}"
+                         for r in rows) + " windows/s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1207,7 +1538,7 @@ def main() -> int:
     from frlw_evd_tpu_torch import encode as enc
     from frlw_evd_tpu_torch import pipeline
     from frlw_evd_tpu_torch.kernels import _build
-    from frlw_evd_tpu_torch.models import stem_chain
+    from frlw_evd_tpu_torch.models import quantize, stem_chain
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1225,7 +1556,8 @@ def main() -> int:
                 "taf_update_leaky_raw": enc.taf_update_leaky_raw,
                 "taf_update_leaky_v2": enc.taf_update_leaky_v2,
                 "bfm_chain_apply_folded": stem_chain.bfm_chain_apply_folded,
-                "bfm_chain_apply": stem_chain.bfm_chain_apply}
+                "bfm_chain_apply": stem_chain.bfm_chain_apply,
+                "int8_conv2d": quantize.int8_conv2d}
 
     t0 = time.perf_counter()
     build_logs = _build.build()
@@ -1300,11 +1632,22 @@ def main() -> int:
           train, build_detector, dev)
     phase(20, "B1 and B6 at E = 2^19", check_long_streams, enc, pipeline,
           dev, rate)
+    torch.cuda.empty_cache()
+    rows["int8_conv2d"] = phase(21, "int8_conv2d", check_int8_conv, quantize,
+                                build_detector, pipeline, rate, name)
+    windows = (device_windows(pipeline, np.random.default_rng(3), E,
+                              GEN1_SENSOR, dev)
+               + device_windows(pipeline, np.random.default_rng(4), E,
+                                GEN1_SENSOR, dev))
+    by_path["gen1_int8"] = phase(22, "GEN1 int8 path", run_int8_path,
+                                 pipeline, quantize, build_detector,
+                                 counters, windows, dev, card)
+    del windows
 
     # entry: (wrapper, paths that launch it at the entry's shape, the first
     # being the one whose launches the entry reports, source, TPU kernel)
     meta = {
-        "scatter_cnt_tsum": ("scatter_cnt_tsum", ("gen1",),
+        "scatter_cnt_tsum": ("scatter_cnt_tsum", ("gen1", "gen1_int8"),
                              "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                              "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_p64": ("scatter_cnt_tsum",
@@ -1318,7 +1661,7 @@ def main() -> int:
         "scatter_cnt_tsum_pallas": ("scatter_cnt_tsum_pallas", ("gen1_b8",),
                                     "frlw_evd_tpu_torch/csrc/scatter_dense.cu",
                                     "frlw_evd_tpu/encode/pallas_scatter.py:67"),
-        "taf_update_leaky": ("taf_update_leaky", ("gen1",),
+        "taf_update_leaky": ("taf_update_leaky", ("gen1", "gen1_int8"),
                              "frlw_evd_tpu_torch/csrc/taf_update.cu",
                              "frlw_evd_tpu/encode/pallas_update.py:37"),
         "taf_update_leaky_raw": ("taf_update_leaky_raw",
@@ -1336,6 +1679,9 @@ def main() -> int:
         "bfm_chain_apply": ("bfm_chain_apply", ("gen4_bfm_p64_kernel",),
                             "frlw_evd_tpu_torch/csrc/bfm_chain.cu",
                             "frlw_evd_tpu/models/pallas_stem.py:59"),
+        "int8_conv2d": ("int8_conv2d", ("gen1_int8",),
+                        "frlw_evd_tpu_torch/csrc/int8_conv.cu",
+                        "none (XLA conv, frlw_evd_tpu/models/quantize.py:283)"),
     }
     for wrapper in counters:          # every launching path is listed
         listed = {p for w, paths, _, _ in meta.values() if w == wrapper
@@ -1360,7 +1706,10 @@ def main() -> int:
                         **{k: row[k] for k in ("ms_by_set",
                                                "library_ms_by_set",
                                                "per_block_tiles_ms",
-                                               "split_ms")
+                                               "split_ms", "tilings_ms",
+                                               "cudnn_bf16_ms",
+                                               "ms_1x1", "int_mm_1x1_ms",
+                                               "by_site")
                            if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(card)

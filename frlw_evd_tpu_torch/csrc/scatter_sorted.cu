@@ -41,31 +41,8 @@
 
 #include "hist_tile.cuh"
 
-namespace {
-
-// Slot e of stream b: counted when valid and 0 <= idx < size.
-struct CellFront {
-  const int32_t* idx;
-  const float* t;
-  const uint8_t* valid;
-  int E, size;
-
-  __device__ __forceinline__ hist_tile::Slot load(int b, int e, int lo,
-                                                  int span, bool*) const {
-    hist_tile::Slot s = {-1, 0.0f};
-    if (e >= E) return s;
-    const int64_t i = (int64_t)b * E + e;
-    const int32_t c = __ldg(idx + i);
-    if (__ldg(valid + i) && c < size && c >= lo && c - lo < span)
-      s.local = c - lo;
-    s.t = __ldg(t + i);
-    return s;
-  }
-};
-
-}  // namespace
-
-// idx (B, E) i32, t (B, E) f32, valid (B, E) u8 (torch.bool); cnt, tsum
+// idx (B, E) i32, t (B, E) f32, valid (B, E) u8 (torch.bool), a slot
+// counted when valid and 0 <= idx < size (hist_tile::CellFront); cnt, tsum
 // (B, size) f32, every cell written. Tiling: `clusters` clusters of `cs`
 // blocks per stream, `cells` cells a block (encode/scatter.py::tile_plan).
 // E must be below 2^30. Launches on `stream`, no sync.
@@ -73,8 +50,8 @@ extern "C" int scatter_cnt_tsum_exact(const void* idx, const void* t,
                                       const void* valid, void* cnt, void* tsum,
                                       int B, int E, int size, int clusters,
                                       int cs, int cells, void* stream) {
-  const CellFront front{(const int32_t*)idx, (const float*)t,
-                        (const uint8_t*)valid, E, size};
+  const hist_tile::CellFront front{(const int32_t*)idx, (const float*)t,
+                                   (const uint8_t*)valid, E, size};
   return hist_tile::launch(front, cnt, tsum, nullptr, B, E, size, clusters,
                            cs, cells, (cudaStream_t)stream);
 }

@@ -16,13 +16,13 @@ counted when valid and 0 <= idx < size.
   `csrc/scatter_sorted.cu` sums t as integers (LSB 2^-24) with no sort, so
   its sums are bit-reproducible and, on the steps' t - 1, equal to its
   twin's f64 sums rounded once.
-- `scatter_cnt_tsum_pallas` (B8): `csrc/scatter_dense.cu`, a shared-memory
-  tile per block that every slot of its stream visits; t exact.
+- `scatter_cnt_tsum_pallas` (B8): `csrc/scatter_dense.cu`, the same
+  cluster tile with a u32 count and an f32 t-sum a cell, for any f32 t.
 - `scatter_cnt_tsum_sorted`: plain torch on any device, as the JAX function
   is XLA outside any Pallas kernel; it keeps that function's bf16 rounding
   of t.
 
-B1 and B6 are output-stationary cluster tiles (`csrc/hist_tile.cuh`):
+B1, B6 and B8 are output-stationary cluster tiles (`csrc/hist_tile.cuh`):
 `tile_plan` cuts a stream's cells into the ranges of clusters of blocks,
 each block's slice in shared memory, and the kernel writes every output
 cell once (no zero fill).
@@ -51,7 +51,8 @@ SMEM_PER_BLOCK = 232448
 _FLAG_BYTES = 16
 CLUSTER = 8
 # Bytes a cell takes in shared memory: one u64 holding its count and its
-# t-sum as integers (csrc/hist_tile.cuh: Packed).
+# t-sum as integers (B1, B6), or a u32 count and an f32 t-sum (B8)
+# (csrc/hist_tile.cuh: Packed, Dense).
 CELL_BYTES = 8
 # A cell's count has 17 bits, so one launch of B1 or B6 takes E < 2^17
 # slots a stream. The wrappers take any E: past MAX_SLOTS they launch the
@@ -61,7 +62,7 @@ MAX_SLOTS = 2 ** 17 - 1
 
 
 class TilePlan(NamedTuple):
-    """How B1 and B6 cut a stream's cells: `clusters` clusters of `cluster`
+    """How B1, B6 and B8 cut a stream's cells: `clusters` clusters of `cluster`
     blocks each; the stream's k-th block (rank r of cluster c is k = c *
     cluster + r) owns cells [k * cells, (k + 1) * cells), clipped to the
     stream's size."""
@@ -420,10 +421,15 @@ def scatter_cnt_tsum_pallas(idx, tvals, valid, size: int):
     Args:
       idx, tvals, valid: (B, E) int32 cell indices, f32 values, bool.
       size: cells per stream; invalid or out-of-range slots are dropped.
-    Returns (cnt, tsum) each (B, size) f32, t summed exactly in f32.
+    Returns (cnt, tsum) each (B, size) f32; counts exact, t any f32 (no
+    range limit), summed in f32.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (counted
-    in `scatter_cnt_tsum_pallas.launches`) or raise.
+    in `scatter_cnt_tsum_pallas.launches`) or raise. The kernel is the
+    cluster tile of B1 and B6 with a u32 count and an f32 t-sum a cell
+    (`csrc/hist_tile.cuh`: Dense), tiled by `tile_plan`, one launch for any
+    E < 2^30. Its f32 adds run in an order that varies between launches,
+    so a cell's t-sum agrees with the twin's to cnt^2 * 2^-23 * max|t|.
     """
     if idx.device.type == "cpu":
         return scatter_cnt_tsum_pallas_plain(idx, tvals, valid, size)
@@ -432,11 +438,17 @@ def scatter_cnt_tsum_pallas(idx, tvals, valid, size: int):
                          f"{idx.device}")
     _check_cells(idx, tvals, valid, size)
     B, E = idx.shape
+    if E >= 2 ** 30:
+        raise ValueError(f"scatter_cnt_tsum_pallas: E = {E} slots, the "
+                         f"kernel takes E < 2^30")
+    plan = tile_plan(size)
     cnt = torch.empty(B, size, dtype=torch.float32, device=idx.device)
     tsum = torch.empty(B, size, dtype=torch.float32, device=idx.device)
     _build.launch("scatter_dense", "scatter_cnt_tsum_dense",
                   (idx.contiguous(), tvals.contiguous(), valid.contiguous(),
-                   cnt, tsum), (B, E, size), idx.device)
+                   cnt, tsum),
+                  (B, E, size, plan.clusters, plan.cluster, plan.cells),
+                  idx.device)
     scatter_cnt_tsum_pallas.launches += 1
     return cnt, tsum
 

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("scatter_hist", "scatter_sorted", "scatter_dense", "taf_update",
-           "bfm_chain")
+           "bfm_chain", "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -125,11 +125,12 @@ def check(rc: int, what: str) -> None:
 
 def launch(name: str, entry: str, tensors, ints, device) -> None:
     """Call the C entry `entry` of csrc/<name>.cu with the tensors' data
-    pointers, then the ints, then `device`'s current CUDA stream; raise if
-    it returns a CUDA error."""
+    pointers (null for None), then the ints, then `device`'s current CUDA
+    stream; raise if it returns a CUDA error."""
     fn = getattr(load(name), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
-    check(fn(*(t.data_ptr() for t in tensors), *ints, stream), entry)
+    check(fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
+             stream), entry)

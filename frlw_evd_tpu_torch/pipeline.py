@@ -13,7 +13,10 @@ Per 10 ms bin, for B parallel streams:
       the GEN1 path, that histogram and B2);
   detect(vol):
       AED forward in the serving dtype → f32 decode → conf 0.3, top-100,
-      NMS 0.6 → (dets (B, 100, 6), keep (B, 100))
+      NMS 0.6 → (dets (B, 100, 6), keep (B, 100)); with quant=(scales,
+      table) the forward runs under models.quantize.int8_ctx, its calibrated
+      convs through the int8 kernel (bench.py --dtype int8;
+      `calibrate_pipeline` makes the pair from the live encode output)
 
 Each make_pipeline_* function returns `run_step(state, xytp, n_valid) ->
 (state, (dets, keep))` with the two stages under `run_step.stages`, as
@@ -31,6 +34,7 @@ from .encode.update import (init_state, p64_init_state,
                             taf_stream_step_kernel_p64)
 from .models.detector import EventDetector, eval_decode
 from .models.postprocess import postprocess_batch
+from .models.quantize import build_weight_table, calibrate_int8, int8_ctx
 from .models.stems import BinsFusionModuleFolded
 
 K = 8
@@ -77,13 +81,17 @@ def _serving_model(model: EventDetector, device, dtype) -> torch.device:
     return dev
 
 
-def _attach_stages(encode_transform, model: EventDetector):
-    """run_step with the encode_transform and detect stages; detect decodes
-    the head outputs in f32 (bench.py:170)."""
+def _attach_stages(encode_transform, model: EventDetector, quant=None):
+    """run_step with the encode_transform and detect stages; detect runs
+    the forward under int8_ctx(model, *quant) when `quant` is given
+    (bench.py:156-175) and decodes the head outputs in f32 (bench.py:170)."""
+    ctx = int8_ctx(model, *(quant or (None, None)))  # no sites: a no-op
+
     @torch.inference_mode()
     def detect(vol):
-        outs = [o.float() for o in model(vol)]
-        decoded = eval_decode(outs, STRIDES)
+        with ctx:
+            outs = model(vol)
+        decoded = eval_decode([o.float() for o in outs], STRIDES)
         return postprocess_batch(decoded, max_detections=MAX_DETECTIONS)
 
     def run_step(state_f, xytp, n_valid):
@@ -96,10 +104,12 @@ def _attach_stages(encode_transform, model: EventDetector):
 
 def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw,
                          scatter: str = "pallas", *, device="cuda",
-                         dtype=torch.bfloat16):
+                         dtype=torch.bfloat16, quant=None):
     """Folded-state serving pipeline at any geometry (bench.py:254-276),
     with a canonical-input stem (`focus`, `bfm`). `scatter` ("pallas" or
-    "sorted") goes to the step with precise=False, as bench.py passes it."""
+    "sorted") goes to the step with precise=False, as bench.py passes it.
+    quant: None (the serving dtype throughout) or (scales, table) of
+    models.quantize (the int8 path); the model keeps its serving dtype."""
     dev = _serving_model(model, device, dtype)
     h, w = sensor_hw
     ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev)
@@ -112,18 +122,19 @@ def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw,
             vol = nearest_resize(vol, ys, xs)
         return state_f, vol
 
-    return _attach_stages(encode_transform, model)
+    return _attach_stages(encode_transform, model, quant)
 
 
 def make_pipeline_p64(model: EventDetector, sensor_hw,
                       scatter: str = "pallas", *, folded: bool, device="cuda",
-                      dtype=torch.bfloat16):
+                      dtype=torch.bfloat16, quant=None):
     """Patchified-state serving pipeline (bench.py:209-229), the 1 Mpx
     recipe: input == sensor, (W/2) % 16 == 0. The model's stem is a p64
     one, `bfm_folded` when `folded` (the volume stays (B, H/2, (W/2)*64)),
     else `bfm_p64_kernel`, `bfm_p64` or `focus_p64` on its (B, H/2, W/2, 64)
     view; `folded` must agree with the stem. `scatter` ("pallas" or
-    "sorted") goes to the step with precise=False, as bench.py passes it."""
+    "sorted") goes to the step with precise=False, as bench.py passes it.
+    quant as in make_pipeline_kernel."""
     stem = type(model.backbone.stem).__name__
     if folded != isinstance(model.backbone.stem, BinsFusionModuleFolded):
         raise ValueError(f"make_pipeline_p64(folded={folded}) does not fit "
@@ -137,7 +148,25 @@ def make_pipeline_p64(model: EventDetector, sensor_hw,
                                           width=w, scatter=scatter,
                                           precise=False, fold_output=folded)
 
-    return _attach_stages(encode_transform, model)
+    return _attach_stages(encode_transform, model, quant)
+
+
+def calibrate_pipeline(run_step, model: EventDetector, f32_state, state,
+                       windows):
+    """The int8 path's (scales, table), as bench.py:925-945 makes them:
+    encode the first two windows ((xytp, n_valid) pairs) with run_step's
+    encode stage from `state` (advanced in place), calibrate the serving
+    model on the first min(8, B) volumes of each, and quantize the weights
+    of the calibrated convs from `f32_state`, the f32 master state_dict
+    taken before the serving cast. Pass the pair as make_pipeline_*'s
+    quant."""
+    encode = run_step.stages["encode_transform"]
+    vols = []
+    for xytp, n_valid in windows[:2]:
+        state, vol = encode(state, xytp, n_valid)
+        vols.append(vol[:min(8, vol.shape[0])])
+    scales = calibrate_int8(model, vols)
+    return scales, build_weight_table(f32_state, scales)
 
 
 def spread_random_weights_(model: EventDetector, generator: torch.Generator,

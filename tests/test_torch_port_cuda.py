@@ -12,7 +12,9 @@ steps' t - 1 (it sums them as integers at LSB 2^-24, the twin in f64, and
 both round once), and two launches bitwise equal; the updates' state exact; volumes within one bf16 ulp (2^-8); B5
 equal to B3 on the same planes, bit for bit; the BFM chain (B4, B7) within
 atol 1e-2 + rtol 1e-2 (a bf16-rounded intermediate may round the other way
-where the twin sums in another order), B4's pad channels exactly zero.
+where the twin sums in another order), B4's pad channels exactly zero; the
+int8 conv equal to its f64 twin bit for bit (integer sums, then the same
+f32 dequant and bf16 rounding).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ from frlw_evd_tpu_torch.encode import (
     taf_update_leaky_raw, taf_update_leaky_raw_plain, taf_update_leaky_v2,
     taf_update_leaky_v2_plain)
 from frlw_evd_tpu_torch.encode.scatter import (MAX_SLOTS, event_cells,
-                                               slot_chunks)
-from frlw_evd_tpu_torch.models import build_detector
+                                               slot_chunks, tile_plan)
+from frlw_evd_tpu_torch.models import build_detector, quantize
+from frlw_evd_tpu_torch.models.quantize import int8_conv2d, int8_conv2d_plain
 from frlw_evd_tpu_torch.models.stem_chain import (
     bfm_chain_apply, bfm_chain_apply_folded, bfm_chain_apply_folded_plain,
     bfm_chain_apply_plain)
@@ -266,17 +269,178 @@ def test_exact_scatter_tiles_poison_and_no_sort(cuda, monkeypatch, size):
 
 
 def test_dense_scatter_matches_twin(cuda):
-    """B8 against its twin on the folded cells, with a size that is not a
-    multiple of the kernel's tile."""
+    """B8 against its twin on the folded cells, with 5 cells past the
+    sensor's, so that the size is not a multiple of a cluster's range (a
+    ragged last block)."""
     idx, tv, valid, size = _cells(cuda, "folded")
+    size += 5
     before = scatter_cnt_tsum_pallas.launches
     cnt, tsum = scatter_cnt_tsum_pallas(idx, tv, valid, size)
     p_cnt, p_tsum = scatter_cnt_tsum_pallas_plain(idx, tv, valid, size)
     torch.cuda.synchronize()
     assert scatter_cnt_tsum_pallas.launches == before + 1
-    assert size % 6144
+    plan = tile_plan(size)
+    assert size % (plan.cluster * plan.cells)
     torch.testing.assert_close(cnt, p_cnt, rtol=0, atol=0)
     assert ((tsum - p_tsum).abs() <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all()
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one_cell", "striped",
+                                  "large_t"])
+@pytest.mark.parametrize("size", [45_001, 1_000_003],
+                         ids=["one-cluster-ragged", "five-clusters"])
+def test_dense_scatter_sets_and_every_cell(cuda, size, kind):
+    """B8 on 3 streams, E = 4099: uniform cells; every slot of stream 1 in
+    one cell; striped (slot e in cell e % 97, so each warp's lanes collide
+    in pairs and threes); and t = +-1e6 and other |t| >> 1 in
+    [-2^20, 2^20], which B1 and B6 would poison and B8 sums. Counts exact,
+    t-sums within cnt^2 * 2^-23 * max|t| (f32 adds in a run-dependent
+    order), no NaN, every cell written (poisoned outputs)."""
+    rng = np.random.default_rng(6)
+    B, E = 3, 4099
+    idx = rng.integers(-3, size + 3, (B, E)).astype(np.int32)
+    tv = rng.uniform(-1, 1, (B, E)).astype(np.float32)
+    if kind == "one_cell":
+        idx[1] = 77
+    elif kind == "striped":
+        idx[:] = np.arange(E) % 97
+    elif kind == "large_t":
+        tv = (rng.uniform(-1, 1, (B, E)) * 2.0 ** 20).astype(np.float32)
+        tv[:, ::7] = 1e6
+        tv[:, 3::7] = -1e6
+    valid = rng.random((B, E)) < 0.9
+    idx, tv, valid = (torch.from_numpy(a).to(cuda) for a in (idx, tv, valid))
+    poisoned = _poison(((B, size), torch.float32), ((B, size), torch.float32))
+    cnt, tsum = scatter_cnt_tsum_pallas(idx, tv, valid, size)
+    torch.cuda.synchronize()
+    assert {cnt.data_ptr(), tsum.data_ptr()} <= poisoned
+    p_cnt, p_tsum = scatter_cnt_tsum_pallas_plain(idx, tv, valid, size)
+    assert torch.isfinite(cnt).all() and torch.isfinite(tsum).all()
+    assert torch.equal(cnt, p_cnt)
+    t_max = max(tv.abs().max().item(), 1.0)
+    assert ((tsum - p_tsum).abs()
+            <= p_cnt * p_cnt * 2.0 ** -23 * t_max + 1e-6).all()
+    if kind == "one_cell":
+        assert int(cnt[1, 77]) == int(valid[1].sum())
+
+
+INT8_SHAPES = [  # (k, stride, Cin, Cout, H, W): AED site shapes, ragged ones
+    (3, 2, 64, 128, 64, 80), (3, 1, 256, 256, 8, 10), (1, 1, 512, 128, 16, 20),
+    (1, 1, 128, 64, 32, 40), (3, 2, 256, 256, 15, 21), (3, 1, 64, 40, 9, 7),
+    (1, 1, 96, 8, 5, 3)]
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("k,stride,cin,cout,h,w", INT8_SHAPES)
+def test_int8_conv_matches_twin_bit_for_bit(cuda, k, stride, cin, cout, h, w,
+                                            bias):
+    """int8_conv2d against its f64 twin on 3 images: int32 sums equal, bf16
+    outputs equal bit for bit (an integer sum, then the same f32 multiply,
+    add and bf16 rounding), inputs past the scale clipped, NCHW and
+    channels_last inputs alike; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(k * 1000 + cin + cout)
+    x = (2.0 * torch.randn(3, cin, h, w, device=cuda, generator=g)).to(
+        torch.bfloat16)
+    wq = torch.randint(-127, 128, (cout, k, k, cin), device=cuda,
+                       generator=g, dtype=torch.int8)
+    scale = torch.rand(cout, device=cuda, generator=g) * 1e-2
+    b = torch.randn(cout, device=cuda, generator=g) if bias else None
+    inv = 127.0 / 5.0
+    before = int8_conv2d.launches
+    for layout in (torch.contiguous_format, torch.channels_last):
+        xx = x.contiguous(memory_format=layout)
+        out, acc = int8_conv2d(xx, wq, scale, inv, b, stride=stride,
+                               return_acc=True)
+        p_out, p_acc = int8_conv2d_plain(xx, wq, scale, inv, b,
+                                         stride=stride, return_acc=True)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == p_out.shape
+        assert torch.equal(acc, p_acc)
+        assert torch.equal(out, p_out)
+    assert int8_conv2d.launches == before + 2
+    assert (acc.abs() > 0).any()
+
+
+def test_int8_conv_wrapper_raises(cuda):
+    """Cin % 32 != 0, Cout % 8 != 0, k = 5, an f32 activation on the card
+    and a CPU/CUDA mix raise; nothing launches."""
+    x = torch.zeros(1, 64, 8, 8, device=cuda, dtype=torch.bfloat16)
+    wq = torch.zeros(64, 3, 3, 64, device=cuda, dtype=torch.int8)
+    scale = torch.ones(64, device=cuda)
+    before = int8_conv2d.launches
+    with pytest.raises(ValueError, match="Cin % 32"):
+        int8_conv2d(torch.zeros(1, 80, 8, 8, device=cuda,
+                                dtype=torch.bfloat16),
+                    torch.zeros(64, 3, 3, 80, device=cuda, dtype=torch.int8),
+                    scale, 1.0)
+    with pytest.raises(ValueError, match="Cout % 8"):
+        int8_conv2d(x, wq[:60], scale[:60], 1.0)
+    with pytest.raises(ValueError, match="k in"):
+        int8_conv2d(x, torch.zeros(64, 5, 5, 64, device=cuda,
+                                   dtype=torch.int8), scale, 1.0)
+    with pytest.raises(ValueError, match="bf16"):
+        int8_conv2d(x.float(), wq, scale, 1.0)
+    for args in ((x.cpu(), wq, scale), (x, wq.cpu(), scale),
+                 (x, wq, scale.cpu())):
+        with pytest.raises(ValueError, match="on c"):
+            int8_conv2d(*args, 1.0)
+    assert int8_conv2d.launches == before
+
+
+def test_int8_path_on_card_matches_cpu(cuda):
+    """The int8 GEN1 slice at a small size: calibrate_pipeline on the card
+    (bf16) and on the CPU (f32) find the same sites, scales within 5e-2
+    (bf16 against f32 activations); with the CPU's (scales, table) in
+    both, every site launches once a forward on the card, the card's int8
+    maps are within relative L2 0.08 of its bf16 maps (the serving form's
+    gate, tests/test_quantize.py:132), and within 0.08 of the same bf16
+    model's int8 maps on the CPU (the twins; the frameworks' bf16 convs
+    and the codes they feed round apart)."""
+    sensor, inp = (60, 72), (64, 96)
+    ev, nv = pipeline.synth_events(np.random.default_rng(0), 3, 2, 1024,
+                                   sensor)
+
+    def make(device, dtype):
+        model = build_detector(2, stem="bfm", in_channels=(64, 64, 64),
+                               stem_out_channels=64, head_width=64)
+        pipeline.spread_random_weights_(model,
+                                        torch.Generator().manual_seed(1))
+        f32_state = {k: v.clone() for k, v in model.state_dict().items()}
+        base = pipeline.make_pipeline_kernel(model, sensor, inp,
+                                             device=device, dtype=dtype)
+        state = pipeline.new_state(2, sensor, device=device)
+        windows = [(torch.from_numpy(ev[i]).to(device),
+                    torch.from_numpy(nv[i]).to(device)) for i in range(3)]
+        quant = pipeline.calibrate_pipeline(base, model, f32_state, state,
+                                            windows[:2])
+        _, vol = base.stages["encode_transform"](state, *windows[2])
+        return model, quant, vol
+
+    def maps(model, vol, quant=None):
+        with torch.inference_mode():
+            if quant is None:
+                return [o.double().cpu() for o in model(vol)]
+            with quantize.int8_ctx(model, *quant):
+                return [o.double().cpu() for o in model(vol)]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    g_model, g_quant, g_vol = make("cuda", torch.bfloat16)
+    c_model, c_quant, _ = make("cpu", torch.float32)
+    assert set(g_quant[0]) == set(c_quant[0])
+    assert len(g_quant[0]) > 20
+    for key, sx in c_quant[0].items():
+        assert abs(g_quant[0][key] / sx - 1) < 5e-2, key
+    before = int8_conv2d.launches
+    g_int8 = maps(g_model, g_vol, c_quant)
+    assert int8_conv2d.launches == before + len(c_quant[0])
+    g_bf16 = maps(g_model, g_vol)
+    c_model.to(torch.bfloat16)
+    c_int8 = maps(c_model, g_vol.cpu(), c_quant)
+    for lvl, (q, b, c) in enumerate(zip(g_int8, g_bf16, c_int8)):
+        assert 0 < rel(q, b) < 0.08, (lvl, rel(q, b))
+        assert rel(q, c) < 0.08, (lvl, rel(q, c))
 
 
 def test_plane_update_kernel_matches_twin_and_b3(cuda):

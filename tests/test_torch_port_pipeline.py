@@ -43,12 +43,12 @@ B, E = 2, 1024
 OBJ_BIAS = 2.0
 
 
-def _serving_variables():
+def _serving_variables(widths=NARROW):
     """JAX init with the BatchNorm affines spread (scale U(1, 2), bias
     N(0, 0.5): at the identity init the head outputs are nearly constant,
     so near-tied scores would make the top-k order arbitrary) and the obj
     biases raised so that boxes pass conf 0.3."""
-    jmodel = jax_build(2, family="aed", stem="bfm", **NARROW)
+    jmodel = jax_build(2, family="aed", stem="bfm", **widths)
     variables = jax.jit(jmodel.init, static_argnums=(2,))(
         jax.random.key(0), jnp.zeros((1, *INPUT, 16), jnp.float32), False)
     rng = np.random.default_rng(0)
@@ -118,6 +118,94 @@ def test_serving_slice_matches_jax_pipeline():
         n_kept += int(j_keep.sum())
         n_suppressed += int((valid & ~j_keep).sum())
     assert n_kept > 0 and n_suppressed > 0, (n_kept, n_suppressed)
+
+
+WIDE = dict(in_channels=(64, 64, 64), stem_out_channels=64, head_width=64)
+
+
+def test_int8_serving_slice_matches_jax_pipeline():
+    """The int8 path (bench.py --dtype int8) on the CPU, with the wiring
+    of tests/test_bench_pipelines.py:19-64: a 64-wide AED so that the
+    sites engage; JAX calibrates on two encoded windows as bench.main
+    does and builds the table from the f32 params; the port's
+    calibrate_pipeline on the same windows gives the same sites and
+    scales (rtol 1e-5: max|x| of f32 activations that agree to f32
+    rounding, through up to 30 convs whose sums run in another order;
+    1.06e-6 seen). With JAX's scales and tables in both, the port's
+    make_pipeline_kernel(quant=...) detect keeps the same boxes as JAX's
+    int8 detect body (bench._detect_body: int8_ctx, apply, f32 decode,
+    NMS) and as many as JAX's make_pipeline_kernel(quant=...) detect
+    stage counts, f32 on both sides. Every site ran the int8 conv; empty
+    scales leave detect bit for bit."""
+    from frlw_evd_tpu.models import quantize as jq
+    from frlw_evd_tpu_torch.models import quantize as q
+
+    jmodel, variables = _serving_variables(WIDE)
+    windows = _windows()
+    j_enc = bench.make_pipeline_kernel(jmodel, variables, SENSOR, INPUT,
+                                       scatter="pallas"
+                                       ).stages["encode_transform"]
+    j_state = jnp.full((B, SENSOR[0], SENSOR[1] * 16), -6000.0, jnp.float32)
+    j_vols = []
+    for ev, nv in windows[:2]:
+        j_state, j_vol = j_enc(j_state, jnp.asarray(ev), jnp.asarray(nv))
+        j_vols.append(j_vol.astype(jnp.float32))
+    scales = jq.calibrate_int8(jmodel, variables, j_vols)
+    table = jq.build_weight_table(variables["params"], scales)
+
+    tmodel = load_flax_variables(build_detector(2, stem="bfm", **WIDE),
+                                 variables)
+    f32_state = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    base = pipeline.make_pipeline_kernel(tmodel, SENSOR, INPUT, device="cpu",
+                                         dtype=torch.float32)
+    state = pipeline.new_state(B, SENSOR, device="cpu")
+    pscales, ptable = pipeline.calibrate_pipeline(
+        base, tmodel, f32_state, state,
+        [(torch.from_numpy(ev), torch.from_numpy(nv))
+         for ev, nv in windows[:2]])
+    assert set(pscales) == set(scales) == set(q.eligible_sites(tmodel))
+    for key, sx in scales.items():
+        np.testing.assert_allclose(pscales[key], sx, rtol=1e-5, err_msg=key)
+        kq, sw = table[key]
+        assert torch.equal(ptable[key][0], torch.from_numpy(
+            np.asarray(kq).transpose(3, 2, 0, 1).copy())), key
+        assert torch.equal(ptable[key][1], torch.from_numpy(np.array(sw)))
+
+    jax_table = {k: (torch.from_numpy(np.asarray(kq).transpose(3, 2, 0, 1)
+                                      .copy()), torch.from_numpy(np.array(sw)))
+                 for k, (kq, sw) in table.items()}
+    quant = pipeline.make_pipeline_kernel(tmodel, SENSOR, INPUT, device="cpu",
+                                          dtype=torch.float32,
+                                          quant=(scales, jax_table))
+    noop = pipeline.make_pipeline_kernel(tmodel, SENSOR, INPUT, device="cpu",
+                                         dtype=torch.float32, quant=({}, {}))
+    j_quant = bench.make_pipeline_kernel(jmodel, variables, SENSOR, INPUT,
+                                         scatter="pallas",
+                                         quant=(scales, table))
+
+    @jax.jit
+    def j_detect_body(vol):
+        with jq.int8_ctx(scales, table):
+            outs = jmodel.apply(variables, vol, False)
+        return jax_postprocess(
+            jax_eval_decode([o.astype(jnp.float32) for o in outs],
+                            pipeline.STRIDES), max_detections=100)
+
+    j_vol = j_vols[-1]
+    vol = torch.from_numpy(np.array(j_vol))
+    before = q.int8_conv2d.launches
+    dets, keep = quant.stages["detect"](vol)
+    assert q.int8_conv2d.launches == before    # CPU: the twin, no launch
+    j_dets, j_keep = (np.asarray(a) for a in j_detect_body(j_vol))
+    assert j_keep.sum() > 0
+    np.testing.assert_array_equal(keep.numpy(), j_keep)
+    np.testing.assert_allclose(dets.numpy()[j_keep], j_dets[j_keep],
+                               rtol=1e-4, atol=1e-3)
+    assert int(keep.sum()) == int(j_quant.stages["detect"](j_vol))
+    b_dets, b_keep = base.stages["detect"](vol)
+    n_dets, n_keep = noop.stages["detect"](vol)
+    assert torch.equal(n_dets, b_dets) and torch.equal(n_keep, b_keep)
+    assert not torch.equal(dets, b_dets)
 
 
 def test_resize_indices_match_jax():
