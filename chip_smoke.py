@@ -89,14 +89,19 @@ Phases (any failure exits non-zero; no phase catches and continues):
      streams at the gen4 sensor, uniform and one-cell: one launch a chunk
      of at most 2^17 - 1 slots, then B1 against its twin with phase 2's
      gates and B6 bit for bit with its twin; each timed;
- 21. the int8 conv kernel (int8_conv2d) against its twin at every distinct
-     int8 site shape of the GEN1 AED at B = 128 (k, stride, Cin, Cout,
-     H x W): int32 sums equal and bf16 outputs equal bit for bit; each
-     site's time beside its bound (the larger of its bytes over the HBM
-     rate and 2 * MACs over the dense int8 tensor-core rate), torch._int_mm
-     on the same codes (1x1 sites: the same int32 function) and cuDNN's
-     bf16 conv of the site (a yardstick, not the same function); the SASS
-     of libint8_conv.so must hold IMMA and no STL / LDL;
+ 21. the int8 conv kernel (int8_conv2d: wgmma s8, TMA-fed weights) against
+     its twin at every distinct int8 site shape of the GEN1 AED and of the
+     gen4 AED (stem bfm_folded, 7 classes, 512x640) at B = 128 (k, stride,
+     Cin, Cout, H x W): int32 sums equal and bf16 outputs equal bit for
+     bit, both from int8_conv2d and from an Int8Site (the path's launch,
+     with its weight map encoded once); each site's device time (the
+     Int8Site's, time_ms) beside its bound (the larger of its bytes over the HBM rate and
+     2 * MACs over the dense int8 tensor-core rate), its tile plan, the
+     host microseconds a launch takes, torch._int_mm on the same codes (1x1
+     sites: the same int32 function) and cuDNN's bf16 conv of the site (a
+     yardstick, not the same function); per-window sums for both models;
+     the host cost of encoding a weight map; the SASS of libint8_conv.so
+     must hold IGMMA and no STL / LDL;
  22. the GEN1 int8 serving path at full width (phase 4's AED with its
      BatchNorm scales from U(1, 1.75), int8_gen1_model says why; bf16,
      calibrated on the live encode output by pipeline.calibrate_pipeline
@@ -105,13 +110,20 @@ Phases (any failure exits non-zero; no phase catches and continues):
      outputs finite; every site within relative L2 0.04 of its bf16 conv
      on the same input and the head maps within 0.08 of the bf16 maps per
      level (tests/test_quantize.py's gates); encode_transform, detect and
-     windows/s of the int8 and the bf16 path in turns.
+     windows/s of the int8 and the bf16 path in turns;
+ 23. the gen4 int8 serving path the same way (make_pipeline_p64(quant=...),
+     stem bfm_folded, 7 classes, 512x640, B = 128, the BatchNorm scales of
+     phase 22): calibrated, then 3 windows carrying state; int8_conv2d
+     launched (sites) x (windows) times and B1, B3, B4 on every window;
+     phase 22's gates and timing in turns.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
 per cell order, each entry's launches and times from one path (every path
 that launches it under launches_by_path), and the nvidia-smi line before
-its last line, {"ok": true, "device": {...}}.
+its last line, {"ok": true, "device": {...}}. Every ms it prints is the
+device's time (time_ms: CUDA events around calls queued behind a sleep);
+windows/s and ms/step are on the host clock.
 """
 
 from __future__ import annotations
@@ -130,6 +142,10 @@ import torch
 GEN1_SENSOR, GEN1_INPUT = (240, 304), (256, 320)
 GEN4_SENSOR = (512, 640)               # gen4_taf: input == sensor
 B, E, E4, K = 128, 16384, 65536, 8
+# one image of each model's detector input: GEN1 (H, W, 2K), gen4 the
+# folded p64 volume (H/2, (W/2) * 64)
+GEN1_VOLUME = (*GEN1_INPUT, 2 * K)
+GEN4_VOLUME = (GEN4_SENSOR[0] // 2, GEN4_SENSOR[1] // 2 * 64)
 MAIN_WINDOWS = 4
 # HBM rate, f32 CUDA-core FMA rate and dense bf16 tensor-core rate (FLOP/s)
 # of the part nvidia-smi names (NVIDIA data sheets); a kernel's bound is the
@@ -144,6 +160,7 @@ BF16_TENSOR_FLOP_PER_S = {"H100 PCIe": 756e12, "H100 NVL": 835e12,
 # dense int8 tensor-core rate (OP/s), twice the bf16 rate on each part
 INT8_TENSOR_OPS_PER_S = {k: 2 * v for k, v in BF16_TENSOR_FLOP_PER_S.items()}
 INT8_WINDOWS = 6
+GEN4_INT8_WINDOWS = 3
 # exp2 and reciprocal run on the special function units: 16 results per
 # clock per SM on compute capability 9.0 against 128 f32 FMAs (CUDA C++
 # Programming Guide, arithmetic instruction throughput), so the SFU rate is
@@ -185,9 +202,15 @@ def device_windows(pipeline, rng, e_per_bin, sensor, dev):
 
 
 def time_ms(fn, n: int = 10, warm: int = 2) -> float:
-    """Mean ms per call on the card: CUDA events around n calls."""
+    """Mean ms per call on the card: CUDA events around n calls, queued
+    behind a sleep of ~10 ms on the card, so that the calls are enqueued
+    before the first runs and the events time the device alone, not the
+    host's launch cost (a call that syncs the host drains the queue, and
+    is timed with its host gaps). Every ms of a kernel, its twin and its
+    library call is timed so; windows/s are on the host clock."""
     for _ in range(warm):
         fn()
+    torch.cuda._sleep(20_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1296,9 +1319,10 @@ def gen1_model(build_detector, pipeline):
                                            torch.Generator().manual_seed(1))
 
 
-def int8_site_shapes(quantize, model, input_hw):
+def int8_site_shapes(quantize, model, input_shape):
     """{(k, stride, Cin, Cout, H, W): sites} of the model's int8 sites, H x W
-    their input, from one forward of a zero volume under hooks."""
+    their input, from one forward of a zero input of `input_shape` (one
+    image, the model's input layout) under hooks."""
     shapes = Counter()
 
     def record(conv):
@@ -1310,27 +1334,37 @@ def int8_site_shapes(quantize, model, input_hw):
                for m in quantize.eligible_sites(model).values()]
     p = next(model.parameters())
     with torch.inference_mode():
-        model(torch.zeros(1, *input_hw, 2 * K, dtype=p.dtype,
-                          device=p.device))
+        model(torch.zeros(1, *input_shape, dtype=p.dtype, device=p.device))
     for h in handles:
         h.remove()
     return shapes
 
 
-def check_int8_conv(quantize, build_detector, pipeline, rate, card_name):
-    """Phase 21: int8_conv2d against its twin at every distinct int8 site
-    shape of the GEN1 AED at B = 128, on a bf16 channels_last activation
-    N(0, 1) with sx = 3 / 127 (|x| > 3 clips), codes U[-127, 127]
-    and dequant scales U(0, 1e-3): int32 sums equal, bf16 outputs bit for
-    bit. Each site's time beside its bound, the twin, torch._int_mm on the
-    same codes (1x1 sites, checked equal to the sums) and cuDNN's bf16
-    conv. Returns the row: per-window sums over the model's sites."""
-    int8_ops = _rate(INT8_TENSOR_OPS_PER_S, card_name)
-    model = gen1_model(build_detector, pipeline).to("cuda", torch.bfloat16)
-    shapes = int8_site_shapes(quantize, model, GEN1_INPUT)
-    del model
-    check_mma_sass("int8_conv", "IMMA")
-    g = torch.Generator(device="cuda").manual_seed(0)
+def gen4_int8_model(build_detector, pipeline):
+    """Phase 9's 1 Mpx AED (stem bfm_folded, 7 classes) with phase 22's
+    BatchNorm scales U(1, 1.75) (int8_gen1_model says why), f32 on the
+    CPU."""
+    model = build_detector(7, stem="bfm_folded",
+                           generator=torch.Generator().manual_seed(0))
+    pipeline.spread_random_weights_(model, torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.weight.uniform_(1.0, 1.75, generator=g)
+    return model
+
+
+def int8_sites_on_card(quantize, shapes, rate, int8_ops, label, g,
+                       time_twin):
+    """int8_conv2d against its twin at each (k, stride, Cin, Cout, H, W)
+    of `shapes` at B = 128, on a bf16 channels_last activation N(0, 1)
+    with sx = 3 / 127 (|x| > 3 clips), codes U[-127, 127] and dequant
+    scales U(0, 1e-3): int32 sums equal, bf16 outputs bit for bit, from
+    int8_conv2d and from an Int8Site of the same codes. Prints
+    each site's time beside its bound, tile plan, torch._int_mm on the same
+    codes (1x1 sites, checked equal to the sums) and cuDNN's bf16 conv;
+    the twin is timed when `time_twin`. Returns the per-window totals."""
     totals = Counter()
     by_site = []
     for (k, s, cin, cout, h, w), n in sorted(shapes.items()):
@@ -1346,14 +1380,32 @@ def check_int8_conv(quantize, build_detector, pipeline, rate, card_name):
                                                   stride=s, return_acc=True)
         torch.cuda.synchronize()
         if not (torch.equal(acc, p_acc) and torch.equal(out, p_out)):
-            raise SystemExit(f"int8_conv2d k{k} s{s} {cin}->{cout} {h}x{w}: "
-                             f"sums equal {torch.equal(acc, p_acc)}, outputs "
-                             f"bitwise equal {torch.equal(out, p_out)}")
+            raise SystemExit(f"int8_conv2d {label} k{k} s{s} {cin}->{cout} "
+                             f"{h}x{w}: sums equal {torch.equal(acc, p_acc)}, "
+                             f"outputs bitwise equal "
+                             f"{torch.equal(out, p_out)}")
         del p_out, p_acc
-        ms = time_ms(lambda: quantize.int8_conv2d(x, wq, scale, inv,
-                                                  stride=s))
-        plain_ms = time_ms(lambda: quantize.int8_conv2d_plain(
-            x, wq, scale, inv, stride=s), n=2, warm=1)
+        # the path's launch: an Int8Site, whose weight map is encoded once
+        # (its dequant scale is scale * sx), held to the twin bit for bit
+        # and timed
+        conv = torch.nn.Conv2d(cin, cout, k, s, (k - 1) // 2, bias=False,
+                               device="cuda")
+        site = quantize.Int8Site(conv, 1.0 / inv, wq.permute(0, 3, 1, 2),
+                                 scale)
+        if not torch.equal(site(x), quantize.int8_conv2d_plain(
+                x, wq, site.scale, site.inv, stride=s)):
+            raise SystemExit(f"Int8Site {label} k{k} s{s} {cin}->{cout} "
+                             f"{h}x{w}: outputs differ from the twin")
+        ms = time_ms(lambda: site(x))
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            site(x)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        del conv, site
+        plain_ms = (time_ms(lambda: quantize.int8_conv2d_plain(
+            x, wq, scale, inv, stride=s), n=2, warm=1) if time_twin else None)
         w_bf = torch.randn(cout, cin, k, k, device="cuda", generator=g).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         cudnn_ms = time_ms(lambda: torch.nn.functional.conv2d(
@@ -1376,32 +1428,84 @@ def check_int8_conv(quantize, build_detector, pipeline, rate, card_name):
         nbytes = x.numel() * 2 + wq.numel() + scale.numel() * 4 + out.numel() * 2
         bound = max(nbytes / rate, 2 * macs / int8_ops) * 1e3
         by = "operations" if 2 * macs / int8_ops > nbytes / rate else "bytes"
-        log(f"int8_conv2d k{k} s{s} {cin}->{cout} {h}x{w} (x{n} a window): "
-            f"{ms:.4f} ms, bound {bound:.4f} ({by}, {bound / ms:.1%}), twin "
-            f"{plain_ms:.3f}, _int_mm "
+        plan = quantize.tile_plan(B, h, w, cin, cout, k, s)
+        log(f"int8_conv2d {label} k{k} s{s} {cin}->{cout} {h}x{w} (x{n} a "
+            f"window): {ms:.4f} ms, bound {bound:.4f} ({by}, "
+            f"{bound / ms:.1%}; {2 * macs / ms * 1e-9:.0f} TOP/s), twin "
+            + (f"{plain_ms:.3f}" if plain_ms is not None else "-")
+            + ", _int_mm "
             + (f"{int_mm_ms:.4f}" if int_mm_ms is not None else "-")
-            + f", cuDNN bf16 {cudnn_ms:.4f}; sums equal, outputs bitwise")
+            + f", cuDNN bf16 {cudnn_ms:.4f}; host {host_us:.1f} us a launch; "
+            f"plan bm {plan.bm} bn {plan.bn} stages {plan.stages} smem "
+            f"{plan.smem} grid {plan.grid} tiles {plan.tiles}; sums equal, "
+            f"outputs bitwise")
         by_site.append(dict(k=k, stride=s, cin=cin, cout=cout, hw=[h, w],
                             sites=n, ms=ms, bound_ms=bound, bound_by=by,
                             plain_ms=plain_ms, int_mm_ms=int_mm_ms,
-                            cudnn_bf16_ms=cudnn_ms))
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                            cudnn_bf16_ms=cudnn_ms, host_us=host_us,
+                            plan=plan._asdict()))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms or 0.0),
+                       ("host_ms", host_us * 1e-3),
                        ("cudnn", cudnn_ms), ("bytes", nbytes),
                        ("ops", 2 * macs)):
             totals[key] += n * v
         del x, wq, out, acc, w_bf
         torch.cuda.empty_cache()
     t_bytes, t_ops = totals["bytes"] / rate * 1e3, totals["ops"] / int8_ops * 1e3
-    log(f"int8_conv2d per window ({sum(shapes.values())} sites, "
+    log(f"int8_conv2d {label} per window ({sum(shapes.values())} sites, "
         f"{len(shapes)} shapes): {totals['ms']:.3f} ms, bound "
         f"{max(t_bytes, t_ops):.3f} (bytes {t_bytes:.3f}, operations "
         f"{t_ops:.3f}), cuDNN bf16 {totals['cudnn']:.3f}; 1x1 sites "
-        f"{totals['ms_1x1']:.3f} ms against _int_mm {totals['int_mm_1x1']:.3f}")
-    return dict(max_abs_err=0.0, ms=totals["ms"], plain_ms=totals["plain_ms"],
-                library_ms=None, bound_ms=max(t_bytes, t_ops),
+        f"{totals['ms_1x1']:.3f} ms against _int_mm "
+        f"{totals['int_mm_1x1']:.3f}; host {totals['host_ms']:.3f} ms of "
+        f"launches")
+    return dict(ms=totals["ms"], plain_ms=totals["plain_ms"],
+                host_ms=totals["host_ms"],
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="operations" if t_ops > t_bytes else "bytes",
                 cudnn_bf16_ms=totals["cudnn"], ms_1x1=totals["ms_1x1"],
                 int_mm_1x1_ms=totals["int_mm_1x1"], by_site=by_site)
+
+
+def weight_map_host_us(quantize):
+    """Host microseconds of one weight_map (libcuda's
+    cuTensorMapEncodeTiled behind a ctypes call): what a direct
+    int8_conv2d call adds, which encodes the map for the call. The path
+    caches one map a site (Int8Site) and encodes none for the activation,
+    which is read without TMA."""
+    wq = torch.zeros(256, 3, 3, 256, dtype=torch.int8, device="cuda")
+    quantize.weight_map(wq)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        quantize.weight_map(wq)
+    return (time.perf_counter() - t0) / 200 * 1e6
+
+
+def check_int8_conv(quantize, build_detector, pipeline, rate, card_name):
+    """Phase 21: int8_conv2d against its twin at every distinct int8 site
+    shape of the GEN1 AED and of the gen4 AED (stem bfm_folded, 7
+    classes, 512x640) at B = 128 (int8_sites_on_card); the SASS must hold
+    IGMMA (wgmma) and no STL / LDL; the host cost of a weight map. Returns
+    the row: GEN1 per-window sums, the gen4 ones under "gen4"."""
+    int8_ops = _rate(INT8_TENSOR_OPS_PER_S, card_name)
+    check_mma_sass("int8_conv", "IGMMA")
+    map_us = weight_map_host_us(quantize)
+    log(f"int8_conv2d weight map: {map_us:.2f} us of host time an encode "
+        f"(once a site; the path encodes no map a launch)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for label, make, volume, twin in (
+            ("GEN1", gen1_model, GEN1_VOLUME, True),
+            ("gen4", gen4_int8_model, GEN4_VOLUME, False)):
+        model = make(build_detector, pipeline).to("cuda", torch.bfloat16)
+        shapes = int8_site_shapes(quantize, model, volume)
+        del model
+        rows[label] = int8_sites_on_card(quantize, shapes, rate, int8_ops,
+                                         label, g, twin)
+    row = rows["GEN1"]
+    return dict(row, max_abs_err=0.0, library_ms=None, map_host_us=map_us,
+                gen4={k: v for k, v in rows["gen4"].items()
+                      if k != "plain_ms"})
 
 
 def int8_gen1_model(build_detector, pipeline):
@@ -1452,27 +1556,27 @@ def int8_site_errors(model, vol, ctx):
     return errs
 
 
-def run_int8_path(pipeline, quantize, build_detector, counters, windows,
-                  dev, card):
-    """Phase 22: the GEN1 int8 serving path at full width (int8_gen1_model,
-    bf16), calibrated on the live encode output of windows[:2]
-    (pipeline.calibrate_pipeline), then INT8_WINDOWS windows carrying
-    state; every site within relative L2 0.04 of its bf16 conv and the
-    head maps within 0.08 of bf16's per level; int8 and bf16 timed in
-    turns. Returns the launch counts of the int8 run."""
-    model = int8_gen1_model(build_detector, pipeline)
+def run_int8_path(pipeline, quantize, counters, windows, card, *, label,
+                  model, make, state, need, n_windows):
+    """An int8 serving path at full width: `make(quant)` builds it (bf16
+    with quant None), calibrated on the live encode output of windows[:2]
+    (pipeline.calibrate_pipeline, from `state`), then n_windows windows
+    carrying state: int8_conv2d launched (sites) x (windows) times and
+    each kernel of `need` on every window, outputs finite; every site
+    within relative L2 0.04 of its bf16 conv and the head maps within 0.08
+    of bf16's per level (tests/test_quantize.py's gates); encode_transform,
+    detect and windows/s of int8 and bf16 in turns. Returns the launch
+    counts of the int8 run."""
     f32_state = {k: v.clone() for k, v in model.state_dict().items()}
-    bf16 = pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
-                                         device=dev)
-    state = pipeline.new_state(B, GEN1_SENSOR, device=dev)
+    bf16 = make(None)
     quant = pipeline.calibrate_pipeline(bf16, model, f32_state, state,
                                         windows[:2])
     sites = len(quantize.eligible_sites(model))
     if set(quant[0]) != set(quantize.eligible_sites(model)):
-        raise SystemExit(f"int8: {len(quant[0])} sites calibrated of {sites}")
-    int8 = pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
-                                         device=dev, quant=quant)
-    runs = windows[2:2 + INT8_WINDOWS]
+        raise SystemExit(f"{label} int8: {len(quant[0])} sites calibrated "
+                         f"of {sites}")
+    int8 = make(quant)
+    runs = windows[2:2 + n_windows]
     for fn in counters.values():
         fn.launches = 0
     for i, (ev, nv) in enumerate(runs):
@@ -1481,31 +1585,35 @@ def run_int8_path(pipeline, quantize, build_detector, counters, windows,
         torch.cuda.synchronize()
         if not (torch.isfinite(state).all() and torch.isfinite(vol).all()
                 and torch.isfinite(dets).all()):
-            raise SystemExit(f"int8 path window {i}: non-finite output")
+            raise SystemExit(f"{label} int8 path window {i}: non-finite "
+                             f"output")
         if dets.shape != (B, 100, 6):
-            raise SystemExit(f"int8 path window {i}: dets {dets.shape}")
-        log(f"int8 path window {i}: kept {int(keep.sum().item())} of "
-            f"{int((dets[..., 5] > 0).sum().item())} boxes past conf 0.3 "
+            raise SystemExit(f"{label} int8 path window {i}: dets "
+                             f"{dets.shape}")
+        log(f"{label} int8 path window {i}: kept {int(keep.sum().item())} "
+            f"of {int((dets[..., 5] > 0).sum().item())} boxes past conf 0.3 "
             f"over {B} streams, every output finite")
     launches = {k: fn.launches for k, fn in counters.items()}
     if (launches["int8_conv2d"] != sites * len(runs)
-            or min(launches[k] for k in ("scatter_cnt_tsum",
-                                         "taf_update_leaky")) < len(runs)):
-        raise SystemExit(f"int8 path: {sites} sites x {len(runs)} windows, "
-                         f"launches {launches}")
+            or min(launches[k] for k in need) < len(runs)):
+        raise SystemExit(f"{label} int8 path: {sites} sites x {len(runs)} "
+                         f"windows, launches {launches}")
     ctx = quantize.int8_ctx(model, *quant)
     errs = int8_site_errors(model, vol, ctx)
     worst = max(errs, key=errs.get)
-    log(f"int8 sites against their bf16 convs, relative L2: median "
+    log(f"{label} int8 sites against their bf16 convs, relative L2: median "
         f"{sorted(errs.values())[len(errs) // 2]:.4f}, largest "
         f"{errs[worst]:.4f} ({worst}), smallest {min(errs.values()):.4f}")
     if len(errs) != sites or not all(1e-4 < e < 0.04 for e in errs.values()):
-        raise SystemExit(f"int8 sites beyond relative L2 0.04: {errs}")
+        raise SystemExit(f"{label} int8 sites beyond relative L2 0.04: "
+                         f"{errs}")
     rel = head_maps_rel_l2(model, vol, ctx)
-    log(f"int8 head maps against bf16, relative L2 per level: "
+    log(f"{label} int8 head maps against bf16, relative L2 per level: "
         + ", ".join(f"{r:.4f}" for r in rel))
     if not all(0 < r < 0.08 for r in rel):
-        raise SystemExit(f"int8 head maps beyond relative L2 0.08: {rel}")
+        raise SystemExit(f"{label} int8 head maps beyond relative L2 0.08: "
+                         f"{rel}")
+    del ctx
 
     ev, nv = windows[0]
     times = {}
@@ -1522,12 +1630,50 @@ def run_int8_path(pipeline, quantize, build_detector, counters, windows,
         step_ms = (time.perf_counter() - t0) / 10 * 1e3
         times.setdefault(name, []).append((enc_ms, det_ms, step_ms))
     for name, rows in times.items():
-        log(f"GEN1 {name} path on {card}: encode_transform "
+        log(f"{label} {name} path on {card}: encode_transform "
             + " / ".join(f"{r[0]:.3f}" for r in rows) + " ms, detect "
             + " / ".join(f"{r[1]:.3f}" for r in rows) + " ms, run_step "
             + " / ".join(f"{r[2]:.3f} ms = {B / r[2] * 1e3:.1f}"
                          for r in rows) + " windows/s")
     return launches
+
+
+def run_gen1_int8_path(pipeline, quantize, build_detector, counters,
+                       windows, dev, card):
+    """Phase 22: the GEN1 int8 serving path (int8_gen1_model, bf16;
+    bench.py --config gen1_taf --dtype int8), INT8_WINDOWS windows; B1 and
+    B2 on every window (run_int8_path)."""
+    model = int8_gen1_model(build_detector, pipeline)
+
+    def make(quant):
+        return pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
+                                             device=dev, quant=quant)
+    return run_int8_path(
+        pipeline, quantize, counters, windows, card, label="GEN1",
+        model=model, make=make,
+        state=pipeline.new_state(B, GEN1_SENSOR, device=dev),
+        need=("scatter_cnt_tsum", "taf_update_leaky"),
+        n_windows=INT8_WINDOWS)
+
+
+def run_gen4_int8_path(pipeline, quantize, build_detector, counters,
+                       windows, dev, card):
+    """Phase 23: the 1 Mpx int8 serving path (gen4_int8_model: stem
+    bfm_folded, 7 classes, 512x640, bf16; make_pipeline_p64(quant=...), as
+    bench.py --config gen4_taf --dtype int8 builds it), GEN4_INT8_WINDOWS
+    windows; B1 (p64 order), B3 and B4 on every window (run_int8_path)."""
+    model = gen4_int8_model(build_detector, pipeline)
+
+    def make(quant):
+        return pipeline.make_pipeline_p64(model, GEN4_SENSOR, folded=True,
+                                          device=dev, quant=quant)
+    return run_int8_path(
+        pipeline, quantize, counters, windows, card, label="gen4",
+        model=model, make=make,
+        state=pipeline.new_state(B, GEN4_SENSOR, p64=True, device=dev),
+        need=("scatter_cnt_tsum", "taf_update_leaky_raw",
+              "bfm_chain_apply_folded"),
+        n_windows=GEN4_INT8_WINDOWS)
 
 
 def main() -> int:
@@ -1639,7 +1785,16 @@ def main() -> int:
                               GEN1_SENSOR, dev)
                + device_windows(pipeline, np.random.default_rng(4), E,
                                 GEN1_SENSOR, dev))
-    by_path["gen1_int8"] = phase(22, "GEN1 int8 path", run_int8_path,
+    by_path["gen1_int8"] = phase(22, "GEN1 int8 path", run_gen1_int8_path,
+                                 pipeline, quantize, build_detector,
+                                 counters, windows, dev, card)
+    del windows
+    torch.cuda.empty_cache()
+    windows = (device_windows(pipeline, np.random.default_rng(5), E4,
+                              GEN4_SENSOR, dev)
+               + device_windows(pipeline, np.random.default_rng(6), E4,
+                                GEN4_SENSOR, dev))
+    by_path["gen4_int8"] = phase(23, "gen4 int8 path", run_gen4_int8_path,
                                  pipeline, quantize, build_detector,
                                  counters, windows, dev, card)
     del windows
@@ -1651,7 +1806,8 @@ def main() -> int:
                              "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                              "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_p64": ("scatter_cnt_tsum",
-                                 ("gen4", "gen4_bfm_p64_kernel"),
+                                 ("gen4", "gen4_bfm_p64_kernel",
+                                  "gen4_int8"),
                                  "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                                  "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_pallas_sorted": (
@@ -1665,7 +1821,8 @@ def main() -> int:
                              "frlw_evd_tpu_torch/csrc/taf_update.cu",
                              "frlw_evd_tpu/encode/pallas_update.py:37"),
         "taf_update_leaky_raw": ("taf_update_leaky_raw",
-                                 ("gen4", "gen4_bfm_p64_kernel"),
+                                 ("gen4", "gen4_bfm_p64_kernel",
+                                  "gen4_int8"),
                                  "frlw_evd_tpu_torch/csrc/taf_update.cu",
                                  "frlw_evd_tpu/encode/pallas_update.py:233"),
         "taf_update_leaky_v2": ("taf_update_leaky_v2",
@@ -1673,13 +1830,14 @@ def main() -> int:
                                 "frlw_evd_tpu_torch/csrc/taf_update.cu",
                                 "frlw_evd_tpu/encode/pallas_update.py:143"),
         "bfm_chain_apply_folded": ("bfm_chain_apply_folded",
-                                   ("gen4", "gen4_sorted", "gen4_precise"),
+                                   ("gen4", "gen4_sorted", "gen4_precise",
+                                    "gen4_int8"),
                                    "frlw_evd_tpu_torch/csrc/bfm_chain.cu",
                                    "frlw_evd_tpu/models/pallas_stem.py:98"),
         "bfm_chain_apply": ("bfm_chain_apply", ("gen4_bfm_p64_kernel",),
                             "frlw_evd_tpu_torch/csrc/bfm_chain.cu",
                             "frlw_evd_tpu/models/pallas_stem.py:59"),
-        "int8_conv2d": ("int8_conv2d", ("gen1_int8",),
+        "int8_conv2d": ("int8_conv2d", ("gen1_int8", "gen4_int8"),
                         "frlw_evd_tpu_torch/csrc/int8_conv.cu",
                         "none (XLA conv, frlw_evd_tpu/models/quantize.py:283)"),
     }
@@ -1709,7 +1867,8 @@ def main() -> int:
                                                "split_ms", "tilings_ms",
                                                "cudnn_bf16_ms",
                                                "ms_1x1", "int_mm_1x1_ms",
-                                               "by_site")
+                                               "by_site", "map_host_us",
+                                               "gen4")
                            if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,6 +30,8 @@ SOURCES = ("scatter_hist", "scatter_sorted", "scatter_dense", "taf_update",
            "bfm_chain", "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per-source link flags: int8_conv finds cuTensorMapEncodeTiled with dlsym
+EXTRA_FLAGS = {"int8_conv": ("-ldl",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -89,7 +91,8 @@ def build(names=SOURCES) -> dict[str, str]:
         if not _stale(name):
             continue
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *EXTRA_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)
@@ -123,14 +126,28 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
+_entries: dict[tuple, object] = {}
+
+
+def _entry(name: str, entry: str, n_ptrs: int, n_ints: int):
+    """The C entry with its argument types set, once (setting them costs
+    microseconds a launch)."""
+    key = (name, entry, n_ptrs, n_ints)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return fn
+
+
 def launch(name: str, entry: str, tensors, ints, device) -> None:
     """Call the C entry `entry` of csrc/<name>.cu with the tensors' data
     pointers (null for None), then the ints, then `device`'s current CUDA
     stream; raise if it returns a CUDA error."""
-    fn = getattr(load(name), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = _entry(name, entry, len(tensors), len(ints))
+    stream = torch._C._cuda_getCurrentRawStream(device.index)  # ~0.3 us
     check(fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
              stream), entry)

@@ -25,16 +25,20 @@ over between the two packages; tables hold OIHW codes.
 `int8_ctx(model, scales, table)` swaps each calibrated site's forward for
 `int8_conv2d` while it is active, and leaves the rest of the model as it
 is; with empty scales it does nothing. On CUDA tensors `int8_conv2d`
-launches `csrc/int8_conv.cu` (s8 tensor cores, quantize-on-load, bf16
-channels_last activations) or raises; on CPU tensors it runs the plain
-twin `int8_conv2d_plain`. The JAX package's merged-head hook
+launches `csrc/int8_conv.cu` (wgmma s8 tensor cores, TMA-fed weights, the
+activation quantized where it arrives, bf16 channels_last activations),
+tiled by `tile_plan`, or raises; on CPU tensors it runs the plain twin
+`int8_conv2d_plain`. The JAX package's merged-head hook
 (`maybe_merged_int8_conv`) has no counterpart: the merged head towers are
 not ported.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -160,6 +164,148 @@ def check_site(cin: int, cout: int, k: int, stride: int) -> None:
                          f"stride={stride}, Cin={cin}, Cout={cout}")
 
 
+# The kernel's tiling (csrc/int8_conv.cu): wgmma widths it is built for, K
+# bytes a pipeline stage, slabs its activation copies run ahead, shared
+# memory a block may take on an H100, the SMs that its grid fills.
+WGMMA_N = (8, 16, 32, 64, 128, 256)
+SLAB = 128
+AHEAD = 2
+SMEM_MAX = 232448
+SMS = 132
+MAX_STAGES = 4
+EPI_BYTES = 16 * 48   # a consumer warp's epilogue scratch (kEpiBytes)
+
+
+class TilePlan(NamedTuple):
+    bm: int       # tile rows (64 per consumer warpgroup)
+    bn: int       # output channels a tile (a wgmma width)
+    stages: int   # weight (and activation) stages in the ring
+    smem: int     # dynamic shared memory bytes
+    grid: int     # blocks, each walking tiles grid apart
+    tiles: int    # (row tiles) x (channel tiles), row-major
+    producers: int  # producer warpgroups
+    halo: bool    # int8_conv_halo: rows walk its grid (halo_grid)
+    rows: int     # the rows the tiles cover: N Ho Wo, or N Hg Wg
+    slab: int     # K bytes of a weight TMA box: 128, or a 64-channel block
+    pingpong: bool  # two consumer warpgroups on alternate 64-row tiles
+
+
+def plan_bn(cout: int) -> int:
+    """The tile's output channels: the least wgmma width that holds all
+    of Cout, so that each activation slab is quantized once a tap; 256
+    (several channel tiles) past that."""
+    return next((n for n in WGMMA_N if n >= cout), WGMMA_N[-1])
+
+
+def halo_grid(h: int, w: int, stride: int):
+    """(Hg, Wg, Ph) of the halo kernel: the grid its tile rows walk per
+    image (the padded raster, or one parity plane of it at stride 2) and
+    the halo positions a tile needs in each plane
+    (csrc/int8_conv.cu::int8_conv_halo)."""
+    if stride == 1:
+        return h + 2, w + 2, 128 + 2 * (w + 2) + 2
+    return (h + 3) // 2, (w + 3) // 2, 128 + (w + 3) // 2 + 1
+
+
+def _halo_bytes(w: int, cb: int, stride: int) -> int:
+    """Shared memory of the halo kernel's two halo stages: cb / 16 chunks
+    of 16 channels, stride^2 planes of Ph positions rounded up to 8 k + 1,
+    16 bytes each."""
+    ph = halo_grid(1, w, stride)[2]
+    return 2 * (cb // 16) * stride * stride * ((ph + 6) // 8 * 8 + 1) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
+              stride: int) -> TilePlan:
+    """How int8_conv2d tiles a site (the C entry takes the result as it
+    is). 3x3 sites take the halo kernel where its halo and two weight
+    stages fit: 128-row tiles of its grid (halo_grid), the activation
+    quantized once for the nine taps, in blocks of 128 channels where Cin
+    allows and they fit, else (stride 1 only) 64. 1x1 sites take 64-pixel
+    tiles, two consumer warpgroups on alternate tiles (`pingpong`: one's
+    epilogue overlaps the other's products). The others take 128-pixel
+    tiles (two consumer warpgroups), or 64-pixel tiles (one) where
+    128-pixel ones would leave more than half the SMs idle (small batches;
+    at B = 128 the 8x10 sites ran faster as 80 tiles of 128 than as 160 of
+    64 on an H100). Both with AHEAD + 1 bf16 staging slabs of bm x 2 SLAB
+    bytes and two producer warpgroups, one where two consumer warpgroups
+    at BN = 256 leave no registers for a fourth. BN from `plan_bn`; one
+    persistent block an SM (at most one tile each when tiles are fewer);
+    as many stages as fit, up to MAX_STAGES, in SMEM_MAX bytes with 1024
+    bytes of alignment slack, 8-byte barriers and each consumer warp's
+    EPI_BYTES of epilogue scratch."""
+    bn = plan_bn(cout)
+    gy = -(-cout // bn)
+    # the halo's channel blocks to try: 64-channel ones at stride 2 ran
+    # slower than the general kernel on an H100 (four planes of halo for
+    # two wgmma a weight stage)
+    blocks = ()
+    if k == 3 and cin % 64 == 0:
+        blocks = (SLAB, 64) if cin % SLAB == 0 else (64,)
+        if stride == 2:
+            blocks = blocks[:1] if SLAB in blocks else ()
+    for cb in blocks:
+        fixed = 1024 + _halo_bytes(w, cb, stride) + 32 + 8 * EPI_BYTES
+        stages = min(MAX_STAGES, (SMEM_MAX - fixed) // (bn * cb + 16))
+        if stages >= 2:
+            hg, wg, _ = halo_grid(h, w, stride)
+            rows = n * hg * wg
+            tiles = -(-rows // 128) * gy
+            return TilePlan(128, bn, stages, fixed + stages * (bn * cb + 16),
+                            min(tiles, SMS), tiles, 1, True, rows, cb, False)
+    m = n * _out_size(h, k, stride) * _out_size(w, k, stride)
+    pingpong = k == 1
+    bm = 64 if pingpong or 2 * -(-m // 128) * gy <= SMS else 128
+    tiles = -(-m // bm) * gy
+    warps = 8 if pingpong else bm // 16        # consumer warps
+    fixed = 1024 + (AHEAD + 1) * bm * 2 * SLAB + warps * EPI_BYTES
+    stage = (bm + bn) * SLAB + 16
+    stages = min(MAX_STAGES, (SMEM_MAX - fixed) // stage)
+    if pingpong:
+        stages -= stages % 2        # each consumer owns half the ring
+    producers = 1 if warps == 8 and bn == 256 else 2
+    return TilePlan(bm, bn, stages, fixed + stages * stage, min(tiles, SMS),
+                    tiles, producers, False, m, SLAB, pingpong)
+
+
+def plan_tiles(plan: TilePlan, block: int, cout: int):
+    """[(rows, channels)] ranges of the tiles that `block` of the grid
+    computes, as the kernel walks them (tile t = block, block + grid, ...;
+    row tile t // channel tiles, channel tile t % channel tiles), cut to
+    (plan.rows, cout). Rows are output pixels, or padded positions in a
+    halo plan."""
+    gy = -(-cout // plan.bn)
+    out = []
+    for t in range(block, plan.tiles, plan.grid):
+        m0, n0 = t // gy * plan.bm, t % gy * plan.bn
+        out.append((range(m0, min(m0 + plan.bm, plan.rows)),
+                    range(n0, min(n0 + plan.bn, cout))))
+    return out
+
+
+def weight_matrix(wq: torch.Tensor) -> torch.Tensor:
+    """The (Cout, k*k*Cin) int8 matrix that the kernel's TMA map reads: a
+    view of the OHWI codes, K in (tap, channel) order, no copy."""
+    return wq.reshape(wq.shape[0], -1)
+
+
+def weight_map(wq: torch.Tensor, slab: int = SLAB) -> torch.Tensor:
+    """The TMA map of the CUDA codes `wq` (OHWI int8, contiguous) at the
+    site's BN in boxes of `slab` K bytes (a plan's `slab`), as 128 bytes
+    on the host: encoded once a site (Int8Site), it spares each launch the
+    encode. Valid while wq lives."""
+    mat = weight_matrix(wq)
+    out = torch.empty(128, dtype=torch.uint8)
+    fn = _build.load("int8_conv").int8_conv_weight_map
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    _build.check(fn(mat.data_ptr(), out.data_ptr(), mat.shape[0],
+                    mat.shape[1], plan_bn(mat.shape[0]), slab),
+                 "int8_conv_weight_map")
+    return out
+
+
 def int8_conv2d(x, wq, scale, inv, bias=None, *, stride: int = 1,
                 return_acc: bool = False):
     """int8 convolution of one site: quantize x with f32 `inv` (1 / sx),
@@ -175,8 +321,10 @@ def int8_conv2d(x, wq, scale, inv, bias=None, *, stride: int = 1,
     Returns (N, Cout, Ho, Wo) in x's dtype (channels_last on CUDA), and the
     int32 sums as well when `return_acc`.
 
-    CPU tensors run the twin; CUDA tensors launch csrc/int8_conv.cu (each
-    launch counted in `int8_conv2d.launches`) or raise.
+    CPU tensors run the twin; CUDA tensors launch csrc/int8_conv.cu with
+    `tile_plan`'s tiling through `_launch`, as an Int8Site does, encoding
+    the weights' TMA map for the call (an Int8Site encodes it once), each
+    launch counted in `int8_conv2d.launches`, or raise.
     """
     N, cin, H, W = x.shape
     cout, k = wq.shape[0], wq.shape[1]
@@ -199,19 +347,62 @@ def int8_conv2d(x, wq, scale, inv, bias=None, *, stride: int = 1,
     if x.dtype != torch.bfloat16:
         raise ValueError(f"int8_conv2d reads a bf16 activation on CUDA, got "
                          f"{x.dtype}")
+    return _launch(x, wq.contiguous(), scale.contiguous(),
+                   None if bias is None else bias.contiguous(),
+                   _f32_bits(inv), clamp_bits(_f32(inv)), stride, {},
+                   return_acc)
+
+
+def _f32_bits(value: float) -> int:
+    return struct.unpack("<i", struct.pack("<f", _f32(value)))[0]
+
+
+@functools.lru_cache(maxsize=None)
+def clamp_bits(inv: float) -> int:
+    """The bits of the largest bf16 B > 0 with f32(B * f32(inv)) < 127.5:
+    the kernel clamps x to [-B, B] in bf16 (two instructions for two
+    values) in place of clipping f32(x) * inv to [-127, 127], and gets the
+    same codes, since f32(B * inv) > 126.5 rounds to 127 as the clip does
+    (bf16 values lie at most 2^-7 apart relatively, 0.99 of a code at
+    127). Raises if no finite bf16 reaches 126.5 (sx near the f32 range)."""
+    bits = np.arange(1, 0x7F80, dtype=np.uint32)   # positive finite bf16
+    with np.errstate(over="ignore"):                # inf is past 127.5
+        prod = (bits << 16).view(np.float32) * np.float32(_f32(inv))
+    below = prod < np.float32(127.5)                # a prefix: prod rises
+    n = int(below.sum())
+    if n == 0 or n == len(bits) or not prod[n - 1] > np.float32(126.5):
+        raise ValueError(f"int8_conv2d: no bf16 clamp for inv = {inv}")
+    return int(bits[n - 1])
+
+
+def _launch(x, wq, scale, bias, inv_bits: int, clamp: int, stride: int,
+            wmaps, return_acc: bool = False):
+    """Launch csrc/int8_conv.cu on checked CUDA operands (bf16 x on the
+    operands' device, contiguous OHWI wq, f32 scale and bias; wmaps the
+    {slab: weight_map(wq, slab)} of wq, filled here as plans ask): the one
+    place that launches the kernel and counts a launch."""
+    N, cin, H, W = x.shape
+    cout, k = wq.shape[0], wq.shape[1]
     x = x.contiguous(memory_format=torch.channels_last)
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
+    if x.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("x and wq must be 16-byte aligned")
+    plan = tile_plan(N, H, W, cin, cout, k, stride)
+    wmap = wmaps.get(plan.slab)
+    if wmap is None:
+        wmap = wmaps[plan.slab] = weight_map(wq, plan.slab)
     ho, wo = _out_size(H, k, stride), _out_size(W, k, stride)
-    out = torch.empty(N, cout, ho, wo, dtype=torch.bfloat16, device=x.device,
-                      memory_format=torch.channels_last)
-    acc = (torch.empty(N, cout, ho, wo, dtype=torch.int32, device=x.device,
-                       memory_format=torch.channels_last)
+    out = torch.empty(N, ho, wo, cout, dtype=torch.bfloat16,
+                      device=x.device).permute(0, 3, 1, 2)
+    acc = (torch.empty(N, ho, wo, cout, dtype=torch.int32,
+                       device=x.device).permute(0, 3, 1, 2)
            if return_acc else None)
-    inv_bits = struct.unpack("<i", struct.pack("<f", _f32(inv)))[0]
     _build.launch("int8_conv", "int8_conv2d",
-                  (x, wq.contiguous(), scale.contiguous(), bias, out, acc),
-                  (N, H, W, cin, cout, k, stride, inv_bits), x.device)
+                  (x, scale, bias, out, acc, wmap),
+                  (N, H, W, cin, cout, k, stride, inv_bits, clamp, plan.bm,
+                   plan.bn, plan.stages, plan.smem, plan.grid,
+                   plan.producers, plan.slab if plan.halo else 0,
+                   int(plan.pingpong)),
+                  x.device)
     int8_conv2d.launches += 1
     return (out, acc) if return_acc else out
 
@@ -222,7 +413,8 @@ int8_conv2d.launches = 0
 class Int8Site:
     """One calibrated site, ready for the kernel: OHWI codes, the f32
     dequant scale f32(sw * sx), the bias, f32(1 / sx) and the stride, on
-    the conv's device."""
+    the conv's device; on CUDA also the codes' TMA maps (`weight_map`, one
+    a slab size its plans take)."""
 
     def __init__(self, conv: nn.Conv2d, sx: float, q: torch.Tensor,
                  sw: torch.Tensor):
@@ -241,8 +433,18 @@ class Int8Site:
                       * torch.tensor(sx, dtype=torch.float32)).to(dev)
         self.bias = (None if conv.bias is None
                      else conv.bias.detach().float().to(dev))
+        self.wmaps = ({SLAB: weight_map(self.wq)} if dev.type == "cuda"
+                      else None)
+        self.inv_bits = _f32_bits(self.inv)
+        self.clamp = clamp_bits(self.inv) if dev.type == "cuda" else None
+        self.cin = conv.in_channels
 
     def __call__(self, x):
+        if (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
+                and x.shape[1] == self.cin and x.device == self.wq.device):
+            # the operands were checked here once: launch at once
+            return _launch(x, self.wq, self.scale, self.bias, self.inv_bits,
+                           self.clamp, self.stride, self.wmaps)
         return int8_conv2d(x, self.wq, self.scale, self.inv, self.bias,
                            stride=self.stride)
 

@@ -67,7 +67,8 @@ def test_every_listed_source_exists(name):
     ("scatter_dense", ["scatter_cnt_tsum_dense"]),
     ("taf_update", ["taf_update_leaky", "taf_update_leaky_raw",
                     "taf_update_leaky_v2"]),
-    ("bfm_chain", ["bfm_chain_apply", "bfm_chain_apply_folded"])])
+    ("bfm_chain", ["bfm_chain_apply", "bfm_chain_apply_folded"]),
+    ("int8_conv", ["int8_conv2d", "int8_conv_weight_map"])])
 def test_sources_define_the_entries_their_wrappers_call(name, entries):
     text = (_build.CSRC / f"{name}.cu").read_text()
     for entry in entries:

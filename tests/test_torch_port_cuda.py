@@ -327,7 +327,16 @@ def test_dense_scatter_sets_and_every_cell(cuda, size, kind):
 INT8_SHAPES = [  # (k, stride, Cin, Cout, H, W): AED site shapes, ragged ones
     (3, 2, 64, 128, 64, 80), (3, 1, 256, 256, 8, 10), (1, 1, 512, 128, 16, 20),
     (1, 1, 128, 64, 32, 40), (3, 2, 256, 256, 15, 21), (3, 1, 64, 40, 9, 7),
-    (1, 1, 96, 8, 5, 3)]
+    (1, 1, 96, 8, 5, 3),
+    # 128-pixel tiles (tile_plan: two waves or more) at BN = 256, and with a
+    # K (864) that ends inside a stage, odd H and W
+    (1, 1, 128, 256, 128, 96), (3, 1, 96, 128, 97, 129),
+    # fewer pixels than one 64-pixel tile; BN = 32 for Cout 24
+    (3, 2, 32, 24, 6, 5),
+    # the halo kernel (3x3, Cin % 64 == 0): odd sizes, BN = 64 for Cout 40,
+    # three 128-channel blocks at BN = 16, 64-channel blocks, stride 2
+    (3, 1, 128, 40, 9, 7), (3, 1, 128, 256, 33, 41), (3, 1, 384, 16, 5, 6),
+    (3, 1, 192, 128, 12, 15), (3, 2, 192, 40, 13, 11)]
 
 
 @pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
@@ -359,6 +368,35 @@ def test_int8_conv_matches_twin_bit_for_bit(cuda, k, stride, cin, cout, h, w,
         assert torch.equal(out, p_out)
     assert int8_conv2d.launches == before + 2
     assert (acc.abs() > 0).any()
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("k,stride,cin,cout,h,w", INT8_SHAPES)
+def test_int8_site_matches_twin_bit_for_bit(cuda, k, stride, cin, cout, h,
+                                            w, bias):
+    """An Int8Site (the path's launch: its weight map encoded once, its
+    dequant scale sw * sx) against the twin at its own codes, scale and
+    inv: bf16 outputs equal bit for bit, on two calls of one map; one
+    launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(k * 1000 + cin + cout + 7)
+    conv = torch.nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=bias,
+                           device=cuda)
+    q = torch.randint(-127, 128, (cout, cin, k, k), device=cuda,
+                      generator=g, dtype=torch.int8)
+    sw = torch.rand(cout, device=cuda, generator=g) * 1e-2
+    site = quantize.Int8Site(conv, 5.0 / 127.0, q, sw)
+    before = int8_conv2d.launches
+    for seed in range(2):
+        x = (2.0 * torch.randn(3, cin, h, w, device=cuda, generator=g)).to(
+            torch.bfloat16)
+        out = site(x)
+        p_out = int8_conv2d_plain(x, site.wq, site.scale, site.inv,
+                                  site.bias, stride=stride)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == p_out.shape
+        assert torch.equal(out, p_out)
+    assert int8_conv2d.launches == before + 2
+    assert (out.abs() > 0).any()
 
 
 def test_int8_conv_wrapper_raises(cuda):
