@@ -115,7 +115,31 @@ Phases (any failure exits non-zero; no phase catches and continues):
      stem bfm_folded, 7 classes, 512x640, B = 128, the BatchNorm scales of
      phase 22): calibrated, then 3 windows carrying state; int8_conv2d
      launched (sites) x (windows) times and B1, B3, B4 on every window;
-     phase 22's gates and timing in turns.
+     phase 22's gates and timing in turns;
+ 24. the TAF steps at full width, 3 windows each carrying state: at GEN1
+     the unpacked step (mxu: B6; sorted; exact) and the packed step
+     (pallas: B1; pallas precise: B6; sorted; mxu: B6; xla); at gen4 the
+     packed step (pallas: B1; sorted), the folded step (pallas: B1 → B2;
+     sorted → B2) and the p64 step at
+     K = 4 (raw: B1 → B2; precise: B6 → B2; sorted → B2); first B6 at the
+     GEN1 cells, B1 in the gen4 folded order and B2 at the gen4 folded
+     and the p64 K = 4 geometries against their twins (B6 and B2's state
+     bit for bit); each volume within two bf16 ulps of
+     taf_stream_step_kernel's (the K = 4 one of the four newest bins of
+     taf_stream_step_kernel_p64's); device ms a window;
+ 25. the serving configs gen1_taf_dense, gen1_taf_p64, gen1_taf_packed,
+     gen4_taf_packed and gen4_taf_xla (bench.py:59-99) at their shapes and
+     widths through make_pipeline / make_pipeline_packed, 4 windows
+     carrying state: outputs finite, B6 (dense, p64) or B1 (packed) on
+     every window; per-stage ms, windows/s, peak memory;
+ 26. the streaming encoder configs gen1_eci, gen1_sae, gen1_sae_max,
+     gen1_ev and gen1_frame (bench.py:128-145) through
+     make_encoder_step: both signatures warmed, five runs of 50 windows
+     each ending in a host read; windows/s, Mev/s and ms a window of the
+     median run with the runs' spread (host clock), device ms a window;
+     sae sorted and max within rtol 1e-3, atol 1e-2;
+ 27. every function of phases 24-26 and the offline encoders on a small
+     input, card against CPU, at the CPU tests' tolerances.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -353,6 +377,32 @@ def check_scatter(enc, ev_sets, dev, rate, sensor, layout):
                 per_block_tiles_ms=alone_ms, split_ms=split)
 
 
+def b2_against_twin(enc, label, cnt, tsum, anyv, height, width, C, dev):
+    """B2 vs its twin on a (B, height, width*C) queue of -30 * U(0, 1) with
+    every fifth position -6000, stream 3 frozen (anyv[3] must be 0): state
+    bit for bit, volume within one bf16 ulp (2^-8). Returns (state, twin
+    state, volume error)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = -30.0 * torch.rand(B, height, width * C, device=dev, generator=g)
+    state[:, :, ::5] = -6000.0
+    twin_state = state.clone()
+    frozen = state[3].clone()
+    kw = dict(height=height, width=width)
+    _, vol = enc.taf_update_leaky(state, cnt, tsum, anyv, **kw)
+    _, p_vol = enc.taf_update_leaky_plain(twin_state, cnt, tsum, anyv, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(state, twin_state)
+    vol_err = (vol.float() - p_vol.float()).abs().max().item()
+    kept = torch.equal(state[3], frozen)
+    if not same or vol_err > 2.0 ** -8 or not kept:
+        raise SystemExit(f"B2 {label}: state bitwise equal to the twin's "
+                         f"{same}, vol err {vol_err}, frozen stream kept: "
+                         f"{kept}")
+    log(f"B2 {label}: state bitwise equal to the twin's, max |dvol| "
+        f"{vol_err:.3e}, frozen stream unchanged")
+    return state, twin_state, vol_err
+
+
 def check_update(enc, ev_sets, dev, rate):
     """Phase 3: B2 vs its twin at full shape, stream 3 frozen."""
     H, W = GEN1_SENSOR
@@ -360,22 +410,8 @@ def check_update(enc, ev_sets, dev, rate):
     nv = nv.clone()
     nv[3] = 0
     cnt, tsum, anyv = enc.scatter_cnt_tsum_plain(ev, nv, height=H, width=W)
-    g = torch.Generator(device=dev).manual_seed(0)
-    state = -30.0 * torch.rand(B, H, W * 2 * K, device=dev, generator=g)
-    state[:, :, ::5] = -6000.0
-    twin_state = state.clone()
-    frozen = state[3].clone()
-    _, vol = enc.taf_update_leaky(state, cnt, tsum, anyv, height=H, width=W)
-    _, p_vol = enc.taf_update_leaky_plain(twin_state, cnt, tsum, anyv,
-                                          height=H, width=W)
-    torch.cuda.synchronize()
-    st_err = (state - twin_state).abs().max().item()
-    vol_err = (vol.float() - p_vol.float()).abs().max().item()
-    if st_err != 0.0 or vol_err > 2.0 ** -8 or not torch.equal(state[3],
-                                                               frozen):
-        raise SystemExit(f"B2: state err {st_err}, vol err {vol_err}, "
-                         f"frozen stream kept: {torch.equal(state[3], frozen)}")
-    log(f"B2: state exact, max |dvol| {vol_err:.3e}, frozen stream unchanged")
+    state, twin_state, vol_err = b2_against_twin(enc, "GEN1", cnt, tsum,
+                                                 anyv, H, W, 2 * K, dev)
     ms = time_ms(lambda: enc.taf_update_leaky(state, cnt, tsum, anyv,
                                               height=H, width=W))
     plain_ms = time_ms(lambda: enc.taf_update_leaky_plain(
@@ -383,7 +419,7 @@ def check_update(enc, ev_sets, dev, rate):
     N = B * H * W * 2 * K
     P = H * W * 2
     bytes_moved = N * 4 * 2 + N * 2 + 2 * B * P * 4 + B * 4
-    return dict(max_abs_err=max(st_err, vol_err), ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=vol_err, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bytes_moved / rate * 1e3,
                 bound_by="bytes")
 
@@ -1676,6 +1712,517 @@ def run_gen4_int8_path(pipeline, quantize, build_detector, counters,
         n_windows=GEN4_INT8_WINDOWS)
 
 
+TAF_WINDOWS = 3
+# phase 24's gate on a step's volume against the reference's: two bf16
+# ulps at the volume's top (2^-8 each), where the two compute one function
+# up to the rounding of the t-sums; the kernels' t-sums themselves are held
+# to their twins bit for bit (check_step_kernels, phases 2, 3 and 12)
+VOLUME_TOL = 2 * 2.0 ** -8
+SERVING_WINDOWS = 4
+ENCODER_STEPS, ENCODER_WINDOWS = 50, 10     # bench.py:45, :627
+# phase 26 times ENCODER_STEPS windows this many times and reports the
+# median: one run of 50 windows is tens of ms on a shared host's clock
+ENCODER_REPEATS = 5
+B1, B2, B6 = ("scatter_cnt_tsum", "taf_update_leaky",
+              "scatter_cnt_tsum_pallas_sorted")
+
+
+def taf_step_variants(enc, sensor):
+    """Phase 24's variants at `sensor`: name → (fresh state, step(state,
+    ev, nv) → (state, the p64 K = 4 step's volume or None), volume(state)
+    → (B, H, W, 2K) bf16 for the steps that make none, the kernels that
+    must launch on every window). The unpacked, packed and folded steps
+    run with precise=False, as the serving pipelines call them, unless
+    the name says precise."""
+    st = enc.streaming
+    H, W = sensor
+    dev = torch.device("cuda")
+
+    def leaky(s):
+        return (enc.leaky_transform(s) / 255.0).to(torch.bfloat16)
+
+    def unpacked(**kw):
+        def step(s, ev, nv):
+            return st.taf_stream_step(s, ev, nv, precise=False, **kw), None
+        return (torch.full((B, H, W, 2, K), -6000.0, device=dev), step,
+                lambda s: leaky(st.taf_pack_state(s)))
+
+    def packed(scatter, precise=False):
+        def step(s, ev, nv):
+            return st.taf_stream_step_packed(s, ev, nv, scatter=scatter,
+                                             precise=precise), None
+        return (torch.full((B, H, W, 2 * K), -6000.0, device=dev), step,
+                leaky)
+
+    def folded(scatter):
+        def step(s, ev, nv):
+            return st.taf_stream_step_folded(s, ev, nv, height=H, width=W,
+                                             scatter=scatter), None
+        return (enc.init_state(B, H, W, K, device=dev), step,
+                lambda s: leaky(s).view(B, H, W, 2 * K))
+
+    def p64_k4(scatter, precise=False):
+        def step(s, ev, nv):
+            return enc.taf_stream_step_kernel_p64(
+                s, ev, nv, height=H, width=W, scatter=scatter,
+                precise=precise, fold_output=True)
+        return enc.p64_init_state(B, H, W, K=4, device=dev), step, None
+
+    if sensor == GEN1_SENSOR:
+        return {
+            "gen1_unpacked_mxu": (*unpacked(use_mxu=True), (B6,)),
+            "gen1_unpacked_sorted": (*unpacked(use_sorted=True), ()),
+            "gen1_unpacked_exact": (*unpacked(use_mxu=False), ()),
+            "gen1_packed_pallas": (*packed("pallas"), (B1,)),
+            "gen1_packed_precise": (*packed("pallas", True), (B6,)),
+            "gen1_packed_sorted": (*packed("sorted"), ()),
+            "gen1_packed_mxu": (*packed("mxu"), (B6,)),
+            "gen1_packed_xla": (*packed("xla"), ()),
+        }
+    return {
+        "gen4_packed_pallas": (*packed("pallas"), (B1,)),
+        "gen4_packed_sorted": (*packed("sorted"), ()),
+        "gen4_folded_pallas": (*folded("pallas"), (B1, B2)),
+        "gen4_folded_sorted": (*folded("sorted"), (B2,)),
+        "gen4_p64k4_raw": (*p64_k4("pallas"), (B1, B2)),
+        "gen4_p64k4_precise": (*p64_k4("pallas", True), (B6, B2)),
+        "gen4_p64k4_sorted": (*p64_k4("sorted"), (B2,)),
+    }
+
+
+def taf_reference(enc, pipeline, sensor, windows):
+    """The volumes phase 24 holds its variants to, after TAF_WINDOWS
+    windows from a fresh queue: taf_stream_step_kernel's (B1 → B2) and,
+    at gen4, the first 8 channels of each 16-channel subpixel block of
+    taf_stream_step_kernel_p64's (K = 8, raw: B1 → B3), the four newest
+    bins that a K = 4 queue holds."""
+    H, W = sensor
+    state = pipeline.new_state(B, sensor, device="cuda")
+    for ev, nv in windows:
+        state, vol = enc.taf_stream_step_kernel(state, ev, nv, height=H,
+                                                width=W)
+    refs = {"folded": vol}
+    del state
+    if sensor == GEN4_SENSOR:
+        state = pipeline.new_state(B, sensor, p64=True, device="cuda")
+        for ev, nv in windows:
+            state, vol8 = enc.taf_stream_step_kernel_p64(
+                state, ev, nv, height=H, width=W, fold_output=True)
+        refs["p64"] = vol8.view(B, H // 2, -1, 16)[..., :8].reshape(
+            B, H // 2, -1)
+        del state
+    return refs
+
+
+def check_step_kernels(enc, windows, sensor, dev):
+    """Phase 24's kernels at the shapes its steps give them that no earlier
+    phase holds to the twins, on the skewed window with stream 3 emptied:
+    at GEN1, B6 on the folded cells (145920 a stream) with the raw t and
+    with bf16(t) (scatter_cnt_tsum_mxu's addends), counts and t-sums bit
+    for bit with its twin (phase 12); at gen4, B1 in the folded order
+    (phase 2's gates), and B2 on B1's planes at the gen4 folded queue
+    (2K = 16) and at the p64 K = 4 geometry (H/2 rows, (W/2)*4 columns,
+    2K = 8), state bit for bit and volume within one bf16 ulp (phase 3).
+    Prints the device ms of each launch beside its twin's."""
+    H, W = sensor
+    size = H * W * 2
+    ev, nv = windows[-1]
+    nv = nv.clone()
+    nv[3] = 0
+    if sensor == GEN1_SENSOR:
+        idx, tv, valid = enc.event_cells(ev, nv, H, W)
+        for label, t in (("t", tv), ("bf16(t)", tv.to(torch.bfloat16)
+                                     .to(torch.float32))):
+            cnt, tsum = enc.scatter_cnt_tsum_pallas_sorted(idx, t, valid,
+                                                           size)
+            p_cnt, p_tsum = enc.scatter_cnt_tsum_pallas_sorted_plain(
+                idx, t, valid, size)
+            torch.cuda.synchronize()
+            if not (torch.equal(cnt, p_cnt) and torch.equal(tsum, p_tsum)):
+                raise SystemExit(
+                    f"B6 GEN1 folded on {label}: counts equal "
+                    f"{torch.equal(cnt, p_cnt)}, t-sums differ by up to "
+                    f"{(tsum - p_tsum).abs().max().item()}")
+            ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(
+                idx, t, valid, size))
+            plain_ms = time_ms(
+                lambda: enc.scatter_cnt_tsum_pallas_sorted_plain(
+                    idx, t, valid, size), n=3)
+            log(f"B6 GEN1 folded on {label}: counts and t-sums bitwise equal "
+                f"to the twin's ({int(p_cnt.sum().item())} events); "
+                f"{ms:.3f} ms, twin {plain_ms:.3f} ms")
+        return
+    kw = dict(height=H, width=W)
+    cnt, tsum, anyv = enc.scatter_cnt_tsum(ev, nv, **kw)
+    p_cnt, p_tsum, p_any = enc.scatter_cnt_tsum_plain(ev, nv, **kw)
+    torch.cuda.synchronize()
+    diff = (tsum - p_tsum).abs()
+    if not (torch.equal(cnt, p_cnt) and torch.equal(anyv, p_any) and bool(
+            (diff <= p_cnt * p_cnt * 2.0 ** -23 + 1e-6).all())):
+        raise SystemExit(f"B1 gen4 folded: counts equal "
+                         f"{torch.equal(cnt, p_cnt)}, max |dtsum| "
+                         f"{diff.max().item()}")
+    log(f"B1 gen4 folded: counts exact, max |dtsum| {diff.max().item():.3e}")
+    del cnt, tsum, anyv, diff
+    cnt4, tsum4, any4 = enc.scatter_cnt_tsum_plain(ev, nv, layout="p64", **kw)
+    for label, planes, hw, C in (
+            ("gen4 folded", (p_cnt, p_tsum, p_any), (H, W), 2 * K),
+            ("p64 K = 4", (cnt4, tsum4, any4), (H // 2, W // 2 * 4), K)):
+        state, twin, _ = b2_against_twin(enc, label, *planes, *hw, C, dev)
+        hkw = dict(height=hw[0], width=hw[1])
+        ms = time_ms(lambda: enc.taf_update_leaky(state, *planes, **hkw))
+        plain_ms = time_ms(lambda: enc.taf_update_leaky_plain(
+            twin, *planes, **hkw), n=3)
+        log(f"B2 {label} ({B}, {hw[0]}, {hw[1]} * {C}): {ms:.3f} ms, twin "
+            f"{plain_ms:.3f} ms")
+        del state, twin
+        torch.cuda.empty_cache()
+
+
+def run_taf_steps(enc, pipeline, counters, dev, card):
+    """Phase 24: the unpacked, packed, folded and p64 K = 4 TAF steps at
+    full width, TAF_WINDOWS windows each carrying state (two uniform, one
+    skewed), after check_step_kernels: the kernels of each variant launch
+    on every window, and its volume after the last is within VOLUME_TOL of
+    the reference's (taf_reference; tests/test_bench_pipelines.py:100-105
+    allows 2e-2). Device ms per window of each step, and of the step with
+    the leaky volume where the step makes none. Returns the launch counts
+    of each variant."""
+    by_path = {}
+    for sensor, e_per_bin in ((GEN1_SENSOR, E), (GEN4_SENSOR, E4)):
+        w = device_windows(pipeline, np.random.default_rng(8), e_per_bin,
+                           sensor, dev)
+        windows = w[:TAF_WINDOWS - 1] + w[2:3]
+        del w
+        check_step_kernels(enc, windows, sensor, dev)
+        refs = taf_reference(enc, pipeline, sensor, windows)
+        for name, (state, step, volume, need) in taf_step_variants(
+                enc, sensor).items():
+            for fn in counters.values():
+                fn.launches = 0
+            for ev, nv in windows:
+                state, vol = step(state, ev, nv)
+            torch.cuda.synchronize()
+            if volume is not None:
+                vol = volume(state)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            by_path[name] = launches
+            if any(launches[k] < len(windows) for k in need):
+                raise SystemExit(f"{name} did not launch {need} on every "
+                                 f"window: {launches}")
+            if not (torch.isfinite(state).all() and torch.isfinite(vol).all()):
+                raise SystemExit(f"{name}: non-finite state or volume")
+            ref = refs["p64" if "p64" in name else "folded"]
+            err = (vol.float() - ref.float()).abs().max().item()
+            if vol.shape != ref.shape or err > VOLUME_TOL:
+                raise SystemExit(f"{name}: volume {tuple(vol.shape)} "
+                                 f"{err:.3e} from the reference "
+                                 f"{tuple(ref.shape)}")
+            ev, nv = windows[0]
+            ms = time_ms(lambda: step(state, ev, nv), n=5)
+            with_vol = ""
+            if volume is not None:
+                vol_ms = time_ms(lambda: volume(step(state, ev, nv)[0]), n=5)
+                with_vol = f" ({vol_ms:.3f} with the leaky volume, torch ops)"
+            log(f"{name} on {card}: {ms:.3f} ms a {B}-stream window"
+                f"{with_vol}, volume within {err:.2e} of the reference, "
+                f"launches " + ", ".join(f"{k} {launches[k]}"
+                                         for k in (B1, B2, B6)))
+            del state, vol
+            torch.cuda.empty_cache()
+        del refs, windows
+        torch.cuda.empty_cache()
+    return by_path
+
+
+# bench.py:59-99: (sensor, input, events a bin, classes, stem, factory,
+# scatter, p64_input, kernels that must launch on every window)
+SERVING_CONFIGS = {
+    "gen1_taf_dense": (GEN1_SENSOR, GEN1_INPUT, E, 2, "bfm", "unpacked",
+                       "mxu", False, (B6,)),
+    "gen1_taf_p64": (GEN1_SENSOR, GEN1_INPUT, E, 2, "bfm_p64", "unpacked",
+                     "mxu", True, (B6,)),
+    "gen1_taf_packed": (GEN1_SENSOR, GEN1_INPUT, E, 2, "bfm", "packed",
+                        "pallas", False, (B1,)),
+    "gen4_taf_packed": (GEN4_SENSOR, GEN4_SENSOR, E4, 7, "bfm", "packed",
+                        "pallas", False, (B1,)),
+    "gen4_taf_xla": (GEN4_SENSOR, GEN4_SENSOR, E4, 7, "bfm", "unpacked",
+                     "sorted", False, ()),
+}
+
+
+def run_serving_configs(pipeline, counters, dev, card):
+    """Phase 25: the five serving configs of bench.py built on the
+    unpacked and packed steps, at their shapes and widths (B = 128, AED
+    256 wide, bf16, seeded random weights with raised obj biases) through
+    pipeline.make_pipeline / make_pipeline_packed: SERVING_WINDOWS windows
+    carrying state, every output finite, the kernels of each config on
+    every window; per-stage device ms, windows/s (host clock, 5 steps) and
+    peak memory. Returns the launch counts of each config."""
+    from frlw_evd_tpu_torch.models import build_detector
+
+    by_path = {}
+    for name, (sensor, inp, e_per_bin, classes, stem, factory, scatter,
+               p64_input, need) in SERVING_CONFIGS.items():
+        torch.cuda.reset_peak_memory_stats()
+        model = build_detector(classes, stem=stem,
+                               generator=torch.Generator().manual_seed(0))
+        pipeline.spread_random_weights_(model,
+                                        torch.Generator().manual_seed(1))
+        if factory == "unpacked":
+            run = pipeline.make_pipeline(model, sensor, inp, scatter,
+                                         p64_input=p64_input, device=dev)
+        else:
+            run = pipeline.make_pipeline_packed(model, sensor, inp, scatter,
+                                                device=dev)
+        state = pipeline.new_stream_state(B, sensor, factory, device=dev)
+        windows = device_windows(pipeline, np.random.default_rng(10),
+                                 e_per_bin, sensor, dev)[:SERVING_WINDOWS]
+        encode, detect = run.stages["encode_transform"], run.stages["detect"]
+        want = ((B, inp[0] // 2, inp[1] // 2, 8 * K) if p64_input
+                else (B, *inp, 2 * K))
+        for fn in counters.values():
+            fn.launches = 0
+        for i, (ev, nv) in enumerate(windows):
+            state, vol = encode(state, ev, nv)
+            dets, keep = detect(vol)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(state).all() and torch.isfinite(vol).all()
+                    and torch.isfinite(dets).all()):
+                raise SystemExit(f"{name} window {i}: non-finite output")
+            if vol.shape != want or dets.shape != (B, 100, 6):
+                raise SystemExit(f"{name} window {i}: shapes {vol.shape}, "
+                                 f"{dets.shape}")
+            log(f"{name} window {i}: kept {int(keep.sum().item())} of "
+                f"{int((dets[..., 5] > 0).sum().item())} boxes past conf "
+                f"0.3 over {B} streams")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        by_path[name] = launches
+        if any(launches[k] < len(windows) for k in need):
+            raise SystemExit(f"{name} did not launch {need} on every "
+                             f"window: {launches}")
+        ev, nv = windows[0]
+        enc_ms = time_ms(lambda: encode(state, ev, nv), n=5)
+        det_ms = time_ms(lambda: detect(vol), n=3)
+        n = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, _ = run(state, *windows[i % len(windows)])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n
+        log(f"{name} on {card}: encode_transform {enc_ms:.3f} ms, detect "
+            f"{det_ms:.3f} ms per {B}-stream window batch; run_step "
+            f"{step_s * 1e3:.3f} ms = {B / step_s:.1f} windows/s; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches " + ", ".join(f"{k} {launches[k]}"
+                                     for k in (B1, B2, B6)))
+        del model, run, state, windows, vol, dets, keep
+        torch.cuda.empty_cache()
+    return by_path
+
+
+# bench.py:128-145: config → (encoder, sae_impl)
+ENCODER_CONFIGS = {"gen1_eci": ("eci", "sorted"),
+                   "gen1_sae": ("sae", "sorted"),
+                   "gen1_sae_max": ("sae", "max"),
+                   "gen1_ev": ("ev", "sorted"),
+                   "gen1_frame": ("frame", "sorted")}
+
+
+def run_encoder_configs(pipeline, counters, dev, card):
+    """Phase 26: the five streaming encoder configs at GEN1 (B = 128,
+    E = 16384) through pipeline.make_encoder_step, as run_encoder_bench
+    runs them (bench.py:567-640): ENCODER_WINDOWS uniform windows with µs
+    timestamps, both signatures warmed (state None, then carried), then
+    ENCODER_REPEATS runs of ENCODER_STEPS windows, each ending in a host
+    read: windows/s, Mev/s and ms a window of the median run on the host
+    clock with the runs' spread, and the device ms of one window; no kernel
+    launches. The sae sorted and max impls agree within rtol 1e-3,
+    atol 1e-2 on one window with its timestamps sorted within each stream
+    (tests/test_streaming_red.py:263-271).
+    Returns the launch counts of each config."""
+    ev, nv = pipeline.synth_events(np.random.default_rng(0), ENCODER_WINDOWS,
+                                   B, E, GEN1_SENSOR)
+    ev = torch.from_numpy(pipeline.encoder_events(ev)).to(dev)
+    nv_host = nv
+    nv = torch.from_numpy(nv).to(dev)
+    fence = lambda a: float(a.reshape(-1)[0].item())
+    # the impls agree where each stream's timestamps are monotone, as the
+    # reference's are (max == last write); bench.py's synthetic t is not
+    # sorted, so the comparison window sorts it
+    ordered = ev[3].clone()
+    ordered[..., 2] = ordered[..., 2].sort(dim=1).values
+    by_path, sae_out = {}, {}
+    for name, (kind, impl) in ENCODER_CONFIGS.items():
+        step = pipeline.make_encoder_step(kind, GEN1_SENSOR, sae_impl=impl,
+                                          device=dev)
+        for fn in counters.values():
+            fn.launches = 0
+        out, state = step(None, ev[0], nv[0], 10000.0)
+        fence(out)
+        if state is not None:
+            out, state = step(state, ev[0], nv[0], 10000.0)
+            fence(out)
+        runs = []
+        for _ in range(ENCODER_REPEATS):
+            t0 = time.perf_counter()
+            for i in range(ENCODER_STEPS):
+                s = i % ENCODER_WINDOWS
+                out, state = step(state, ev[s], nv[s], (s + 1) * 10000.0)
+            fence(out)
+            runs.append(time.perf_counter() - t0)
+        elapsed = sorted(runs)[ENCODER_REPEATS // 2]
+        spread = (max(runs) - min(runs)) / elapsed
+        by_path[name] = {k: fn.launches for k, fn in counters.items()}
+        if not torch.isfinite(out).all():
+            raise SystemExit(f"{name}: non-finite output")
+        dev_ms = time_ms(lambda: step(state, ev[0], nv[0], 10000.0), n=5)
+        events = sum(int(nv_host[i % ENCODER_WINDOWS].sum())
+                     for i in range(ENCODER_STEPS))
+        log(f"{name} on {card}: {ENCODER_STEPS * B / elapsed:.1f} "
+            f"windows/s, {events / elapsed / 1e6:.1f} Mev/s, "
+            f"{elapsed / ENCODER_STEPS * 1e3:.3f} ms per {B}-stream window "
+            f"(host clock, the median of {ENCODER_REPEATS} runs, which "
+            f"spread by {spread:.0%} of it); device {dev_ms:.3f} ms a "
+            f"window; output {tuple(out.shape)}")
+        if kind == "sae":
+            sae_out[impl] = step(None, ordered, nv[3], 40000.0)[0]
+    err = (sae_out["max"] - sae_out["sorted"]).abs()
+    bound = 1e-2 + 1e-3 * sae_out["sorted"].abs()
+    if bool((err > bound).any()):
+        raise SystemExit(f"sae max and sorted differ by up to "
+                         f"{err.max().item():.3e}")
+    log(f"sae max against sorted: max |d| {err.max().item():.3e} "
+        f"(rtol 1e-3, atol 1e-2)")
+    if any(any(c.values()) for c in by_path.values()):
+        raise SystemExit(f"an encoder config launched a kernel: {by_path}")
+    return by_path
+
+
+def small_new_encode_outputs(enc, pipeline, d):
+    """Phase 27's functions on device d at a small size, each a tuple of
+    outputs on the CPU: name → (outputs, atol, rtol)."""
+    from frlw_evd_tpu_torch.models import build_detector
+
+    st = enc.streaming
+    rng = np.random.default_rng(11)
+    H, W = 60, 72
+    ev_n, nv_n = pipeline.synth_events_skewed(rng, 3, 2, 1024, (H, W))
+    win = [(torch.from_numpy(ev_n[i]).to(d), torch.from_numpy(nv_n[i]).to(d))
+           for i in range(3)]
+    us = [(torch.from_numpy(e).to(d), n) for e, (_, n) in
+          zip(pipeline.encoder_events(ev_n), win)]
+    idx = torch.from_numpy(rng.integers(-50, 5050, (2, 3000))).int().to(d)
+    tv = torch.from_numpy(rng.uniform(-1, 0, (2, 3000))).float().to(d)
+    valid = torch.from_numpy(rng.random((2, 3000)) < 0.9).to(d)
+    cpu = lambda *ts: tuple(t.float().cpu() for t in ts)
+    out = {}
+    out["scatter_add_mxu"] = (cpu(enc.scatter_add_mxu(idx, tv * 7.0, 5000)),
+                              1e-4, 0)
+    for precise in (True, False):
+        out[f"scatter_cnt_tsum_mxu precise={precise}"] = (cpu(
+            *enc.scatter_cnt_tsum_mxu(idx, tv, valid, 5000, precise)),
+            1e-4, 0)
+    out["segment_last_sorted"] = (cpu(*enc.segment_last_sorted(
+        idx, tv * 100.0, valid, 5000)), 2e-2, 2e-4)
+
+    def carry(state, step, tol, rtol=0.0):
+        for ev, nv in win:
+            state = step(state, ev, nv)
+        return (cpu(*(state if isinstance(state, tuple) else (state,))),
+                tol, rtol)
+
+    unpacked = torch.full((2, H, W, 2, K), -6000.0, device=d)
+    for kw in (dict(use_mxu=True), dict(use_sorted=True),
+               dict(use_mxu=False)):
+        out[f"taf_stream_step {kw}"] = carry(
+            unpacked.clone(), lambda s, e, n: st.taf_stream_step(
+                s, e, n, precise=False, **kw), 2e-3)
+    packed = torch.full((2, H, W, 2 * K), -6000.0, device=d)
+    for sc, pr in (("pallas", False), ("pallas", True), ("sorted", False),
+                   ("mxu", False), ("xla", False)):
+        out[f"taf_stream_step_packed {sc} precise={pr}"] = carry(
+            packed.clone(), lambda s, e, n: st.taf_stream_step_packed(
+                s, e, n, scatter=sc, precise=pr), 2e-3)
+    for sc in ("pallas", "sorted"):
+        out[f"taf_stream_step_folded {sc}"] = carry(
+            enc.init_state(2, H, W, K, device=d),
+            lambda s, e, n: st.taf_stream_step_folded(
+                s, e, n, height=H, width=W, scatter=sc), 5e-3)
+    # the p64 K = 4 step at 60x72: (W/2) = 36, which K = 4 takes
+    for sc, pr in (("pallas", False), ("pallas", True), ("sorted", False)):
+        out[f"taf_stream_step_kernel_p64 K=4 {sc} precise={pr}"] = carry(
+            enc.p64_init_state(2, H, W, K=4, device=d),
+            lambda s, e, n: enc.taf_stream_step_kernel_p64(
+                s if not isinstance(s, tuple) else s[0], e, n, height=H,
+                width=W, scatter=sc, precise=pr), 1e-2)
+    for use_mxu in (True, False):
+        state = None
+        for i, (ev, nv) in enumerate(us):
+            vol, state = st.event_volume_stream(
+                ev, nv, state, (i + 1) * 10000.0, height=H, width=W,
+                use_mxu=use_mxu)
+        out[f"event_volume_stream use_mxu={use_mxu}"] = (
+            cpu(vol, state.volume), 2e-2, 0)
+    out["event_frame_stream"] = (cpu(st.event_frame_stream(
+        *win[0], None, height=H, width=W)[0]), 0.0, 0)
+    for impl in ("sorted", "max"):
+        mem = None
+        for i, (ev, nv) in enumerate(us):
+            sae, mem = st.sae_stream(ev, nv, mem, (i + 1) * 10000.0,
+                                     height=H, width=W, impl=impl)
+        out[f"sae_stream {impl}"] = (cpu(sae, mem), 1e-3, 1e-4)
+    ev, nv = win[0]
+    out["encode_count_image_batch"] = (cpu(enc.encode_count_image_batch(
+        ev, nv, height=H, width=W)), 1e-3, 0)
+    out["encode_event_volume_batch"] = (cpu(enc.encode_event_volume_batch(
+        ev, nv, height=H, width=W)), 2e-3, 0)
+    ev_us, _ = us[0]
+    mem0 = enc.sae_init_state(H, W, now=10000.0, device=d).expand(2, H, W, 2)
+    out["encode_sae_batch"] = (cpu(*enc.encode_sae_batch(
+        ev_us, nv, mem0, 10000.0, height=H, width=W)), 1e-3, 1e-4)
+    state = enc.taf_init_state(H, W, K, device=d)
+    state = enc.encode_taf_window(state, ev, nv)
+    out["encode_taf_window"] = (cpu(state), 2e-3, 0)
+    out["taf_state_to_volume"] = (cpu(enc.taf_state_to_volume(state)),
+                                  2e-3 * 255 / 8.7, 0)
+    model = build_detector(2, stem="bfm", in_channels=(32, 32, 32),
+                           stem_out_channels=16, head_width=32)
+    for factory, sc in (("unpacked", "mxu"), ("packed", "pallas")):
+        make = (pipeline.make_pipeline if factory == "unpacked"
+                else pipeline.make_pipeline_packed)
+        run = make(model, (H, W), (64, 96), sc, device=d,
+                   dtype=torch.float32)
+        state = pipeline.new_stream_state(2, (H, W), factory, device=d)
+        for ev, nv in win:
+            state, vol = run.stages["encode_transform"](state, ev, nv)
+        out[f"make_pipeline {factory} {sc} encode_transform"] = (
+            cpu(state, vol), 2e-2, 0)
+    return out
+
+
+def check_new_encode_against_cpu(enc, pipeline, dev):
+    """Phase 27: every function this slice added, at a small size (60x72,
+    2 streams, 1024 skewed events; the histograms on 3000 random cells),
+    once on the card and once on the CPU, within the tolerances of the CPU
+    tests against JAX (tests/test_torch_port_streaming.py,
+    tests/test_torch_port_encoders.py, tests/test_torch_port_p64.py)."""
+    got = small_new_encode_outputs(enc, pipeline, dev)
+    want = small_new_encode_outputs(enc, pipeline, "cpu")
+    for name, (outs, atol, rtol) in got.items():
+        worst = 0.0
+        for g, w in zip(outs, want[name][0]):
+            d = (g - w).abs()
+            if g.shape != w.shape or bool((d > atol + rtol * w.abs()).any()):
+                raise SystemExit(f"{name}: card against CPU beyond atol "
+                                 f"{atol}, rtol {rtol}: max |d| "
+                                 f"{d.max().item():.3e}")
+            worst = max(worst, d.max().item())
+        log(f"small {name}: card vs CPU max |d| {worst:.2e} (atol {atol}, "
+            f"rtol {rtol})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1798,26 +2345,45 @@ def main() -> int:
                                  pipeline, quantize, build_detector,
                                  counters, windows, dev, card)
     del windows
+    torch.cuda.empty_cache()
+    by_path.update(phase(24, "TAF steps", run_taf_steps, enc, pipeline,
+                         counters, dev, card))
+    by_path.update(phase(25, "serving configs", run_serving_configs,
+                         pipeline, counters, dev, card))
+    by_path.update(phase(26, "encoder configs", run_encoder_configs,
+                         pipeline, counters, dev, card))
+    phase(27, "new encode functions small, card vs CPU",
+          check_new_encode_against_cpu, enc, pipeline, dev)
 
-    # entry: (wrapper, paths that launch it at the entry's shape, the first
-    # being the one whose launches the entry reports, source, TPU kernel)
+    # entry: (wrapper, paths that launch it in the entry's cell order (B1)
+    # or at all, the first being the one at the entry's shape whose
+    # launches the entry reports, source, TPU kernel)
     meta = {
-        "scatter_cnt_tsum": ("scatter_cnt_tsum", ("gen1", "gen1_int8"),
+        "scatter_cnt_tsum": ("scatter_cnt_tsum",
+                             ("gen1", "gen1_int8", "gen1_packed_pallas",
+                              "gen4_packed_pallas", "gen4_folded_pallas",
+                              "gen1_taf_packed", "gen4_taf_packed"),
                              "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                              "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_p64": ("scatter_cnt_tsum",
                                  ("gen4", "gen4_bfm_p64_kernel",
-                                  "gen4_int8"),
+                                  "gen4_int8", "gen4_p64k4_raw"),
                                  "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                                  "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_pallas_sorted": (
-            "scatter_cnt_tsum_pallas_sorted", ("gen4_precise",),
+            "scatter_cnt_tsum_pallas_sorted",
+            ("gen4_precise", "gen4_p64k4_precise", "gen1_unpacked_mxu",
+             "gen1_packed_precise", "gen1_packed_mxu", "gen1_taf_dense",
+             "gen1_taf_p64"),
             "frlw_evd_tpu_torch/csrc/scatter_sorted.cu",
             "frlw_evd_tpu/encode/pallas_scatter.py:343"),
         "scatter_cnt_tsum_pallas": ("scatter_cnt_tsum_pallas", ("gen1_b8",),
                                     "frlw_evd_tpu_torch/csrc/scatter_dense.cu",
                                     "frlw_evd_tpu/encode/pallas_scatter.py:67"),
-        "taf_update_leaky": ("taf_update_leaky", ("gen1", "gen1_int8"),
+        "taf_update_leaky": ("taf_update_leaky",
+                             ("gen1", "gen1_int8", "gen4_folded_pallas",
+                              "gen4_folded_sorted", "gen4_p64k4_raw",
+                              "gen4_p64k4_precise", "gen4_p64k4_sorted"),
                              "frlw_evd_tpu_torch/csrc/taf_update.cu",
                              "frlw_evd_tpu/encode/pallas_update.py:37"),
         "taf_update_leaky_raw": ("taf_update_leaky_raw",

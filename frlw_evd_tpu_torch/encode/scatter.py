@@ -282,6 +282,17 @@ def _stream_bins(idx, ok, size: int):
     return (torch.where(ok, idx, size).long() + offs).reshape(-1)
 
 
+def _index_add_streams(idx, ok, cols, size: int):
+    """(B, size, C) f32: each stream's columns `cols` (B, E, C) of the slots
+    `ok` summed into their cells by `index_add_`, the other slots into
+    each stream's dump bin."""
+    B, C = idx.shape[0], cols.shape[-1]
+    acc = torch.zeros(B * (size + 1), C, dtype=torch.float32,
+                      device=idx.device)
+    acc.index_add_(0, _stream_bins(idx, ok, size), cols.reshape(-1, C))
+    return acc.view(B, size + 1, C)[:, :size]
+
+
 def scatter_cnt_tsum_pallas_sorted_plain(idx, tvals, valid, size: int):
     """Plain-PyTorch twin of kernel B6 (any device): bincount of the
     sentinel-mapped indices, t summed in f64 and rounded once a chunk of
@@ -371,18 +382,13 @@ def scatter_cnt_tsum_sorted(idx, tvals, valid, size: int,
     a difference of at most 2^-9 (2^-17 when precise) per such event.
     Returns (cnt, tsum) each (B, size) f32."""
     _check_cells(idx, tvals, valid, size)
-    B = idx.shape[0]
     ok = _kept(idx, valid, size)
     t = torch.where(ok, tvals, 0.0)
     hi = t.to(torch.bfloat16).to(torch.float32)
     cols = [ok.to(torch.float32), hi]
     if precise:
         cols.append((t - hi).to(torch.bfloat16).to(torch.float32))
-    acc = torch.zeros(B * (size + 1), len(cols), dtype=torch.float32,
-                      device=idx.device)
-    acc.index_add_(0, _stream_bins(idx, ok, size),
-                   torch.stack(cols, -1).reshape(-1, len(cols)))
-    acc = acc.view(B, size + 1, len(cols))[:, :size]
+    acc = _index_add_streams(idx, ok, torch.stack(cols, -1), size)
     tsum = acc[..., 1] + acc[..., 2] if precise else acc[..., 1]
     return acc[..., 0].contiguous(), tsum.contiguous()
 

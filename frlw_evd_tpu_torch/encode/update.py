@@ -13,8 +13,11 @@ quarter-resolution pixel 4 subpixel blocks (s = (x&1)*2 + (y&1)) of 2K = 16
 positions, so the volume is already space-to-depth'd for the p64 stems.
 `taf_update_leaky_raw` (B3) applies one bin to it from B1's p64-order
 planes, `taf_update_leaky_v2` (B5) from (B, H/2, (W/2)*8) planes in
-(pixel, subpixel, polarity) order, the same bytes in the same order. CUDA
-tensors launch `csrc/taf_update.cu`; CPU tensors run the plain twins.
+(pixel, subpixel, polarity) order, the same bytes in the same order. A
+K = 4 p64 queue (2K = 8 positions a subpixel block) is B2's folded queue
+of an (H/2, (W/2)*4) grid, and the step updates it with B2, as does the
+folded step of streaming.py. CUDA tensors launch `csrc/taf_update.cu`;
+CPU tensors run the plain twins.
 
 The steps take JAX's `scatter` and `precise` (pallas_update.py:121-140,
 :343-393): "pallas" with precise=False is kernel B1; "pallas" with
@@ -32,7 +35,7 @@ import torch
 from ..kernels import _build
 from .scatter import (event_cells, scatter_cnt_tsum,
                       scatter_cnt_tsum_pallas_sorted, scatter_cnt_tsum_sorted)
-from .taf import INIT_VALUE, leaky_transform
+from .taf import INIT_VALUE, _leaky_unit
 
 
 def init_state(batch: int, height: int, width: int, K: int = 8, *,
@@ -93,7 +96,7 @@ def taf_update_leaky_plain(state_f, cnt, tsum, any_ev, *, height: int,
     upd = torch.where(has.repeat(1, 1, 1, C // 2), shifted, aged)
     upd = torch.where(any_ev.view(B, 1, 1, 1) != 0, upd, s)
     state_f.copy_(upd.view(B, H, WF))
-    vol = leaky_transform(upd).to(torch.bfloat16)
+    vol = _leaky_unit(upd).to(torch.bfloat16)
     return state_f, vol.view(B, H, WF)
 
 
@@ -139,17 +142,26 @@ def p64_init_state(batch: int, height: int, width: int, K: int = 8, *,
                       INIT_VALUE, dtype=torch.float32, device=device)
 
 
-def _check_p64_geometry(state_f, height: int, width: int) -> None:
-    """The p64 update takes K = 8 and (W/2) % 16 == 0 only, as the TPU
-    kernel asserts (pallas_update.py:266-268); the twin refuses the same."""
-    if height % 2 or width % 2 or (width // 2) % 16:
-        raise ValueError(f"the p64 update needs an even sensor with "
-                         f"(W/2) % 16 == 0, got {height}x{width}")
+def _check_p64_geometry(state_f, height: int, width: int,
+                        Ks=(8,)) -> int:
+    """The p64 queue's K, from the state's width (W/2)*4*2K; refuses a K
+    outside `Ks`, an odd sensor, and (W/2) % 16 != 0 at K = 8, as the TPU
+    kernels assert (pallas_update.py:266-268). Kernel B3 takes K = 8; the
+    step takes K = 8 and K = 4, whose 2K = 8 is what B2's body takes on the
+    card (its twin refuses the same)."""
     B, H2, WF = state_f.shape
-    if H2 != height // 2 or WF != (width // 2) * 64:
-        raise ValueError(f"the p64 update needs K = 8: state (B, "
-                         f"{height // 2}, {(width // 2) * 64}), got "
+    W2 = width // 2
+    if height % 2 or width % 2 or H2 != height // 2 or WF % (W2 * 8):
+        raise ValueError(f"the p64 queue of a {height}x{width} sensor is "
+                         f"(B, {height // 2}, {W2}*4*2K), got "
                          f"{tuple(state_f.shape)}")
+    K = WF // (W2 * 8)
+    if K not in Ks:
+        raise ValueError(f"the p64 step takes K in {Ks}, got K = {K}")
+    if K == 8 and W2 % 16:
+        raise ValueError(f"the p64 update at K = 8 needs (W/2) % 16 == 0, "
+                         f"got {height}x{width}")
+    return K
 
 
 def taf_update_leaky_raw_plain(state_f, cnt, tsum, any_ev, *, height: int,
@@ -176,7 +188,7 @@ def taf_update_leaky_raw_plain(state_f, cnt, tsum, any_ev, *, height: int,
                       aged)
     upd = torch.where(any_ev.view(B, 1, 1, 1) != 0, upd, s)
     state_f.copy_(upd.view(B, H2, WF))
-    vol = leaky_transform(upd).to(torch.bfloat16)
+    vol = _leaky_unit(upd).to(torch.bfloat16)
     return state_f, vol.view(B, H2, WF)
 
 
@@ -274,7 +286,7 @@ def taf_update_leaky_v2_plain(state_f, cnt_r, tsum_r, any_ev, *, height: int,
     upd = torch.where(has, torch.where(first, tm, shifted), aged)
     upd = torch.where(any_ev.view(B, 1, 1) != 0, upd, state_f)
     state_f.copy_(upd)
-    return state_f, leaky_transform(upd).to(torch.bfloat16)
+    return state_f, _leaky_unit(upd).to(torch.bfloat16)
 
 
 def taf_update_leaky_v2(state_f, cnt_r, tsum_r, any_ev, *, height: int,
@@ -315,13 +327,20 @@ SCATTERS = ("pallas", "sorted")
 
 def _cell_histogram(xytp, n_valid, height: int, width: int, layout: str,
                     scatter: str, precise: bool):
-    """(cnt, tsum) (B, H*W*2) of the steps' precise and sorted paths, over
-    the cells that kernel B1 would count (`event_cells`)."""
+    """(cnt, tsum (B, H*W*2) f32, any_ev (B,) int32) of one bin in `layout`:
+    kernel B1 for scatter="pallas" with precise=False, kernel B6 with
+    precise=True, `scatter_cnt_tsum_sorted` for scatter="sorted", the last
+    two over the cells that B1 would count (`event_cells`)."""
+    if scatter == "pallas" and not precise:
+        return scatter_cnt_tsum(xytp, n_valid, height=height, width=width,
+                                layout=layout)
     idx, tv, valid = event_cells(xytp, n_valid, height, width, layout)
     size = height * width * 2
     if scatter == "pallas":
-        return scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
-    return scatter_cnt_tsum_sorted(idx, tv, valid, size, precise)
+        cnt, tsum = scatter_cnt_tsum_pallas_sorted(idx, tv, valid, size)
+    else:
+        cnt, tsum = scatter_cnt_tsum_sorted(idx, tv, valid, size, precise)
+    return cnt, tsum, (cnt > 0).any(dim=1).to(torch.int32)
 
 
 def _check_scatter(step: str, scatter: str) -> None:
@@ -341,13 +360,8 @@ def taf_stream_step_kernel(state_f, xytp, n_valid, *, height: int,
     Returns (state_f, vol (B, H, W, 2K) bf16 in [0, 1]); state_f is the
     input tensor, updated in place."""
     _check_scatter("taf_stream_step_kernel", scatter)
-    if scatter == "pallas" and not precise:
-        cnt, tsum, any_ev = scatter_cnt_tsum(xytp, n_valid, height=height,
-                                             width=width)
-    else:
-        cnt, tsum = _cell_histogram(xytp, n_valid, height, width, "folded",
-                                    scatter, precise)
-        any_ev = (cnt > 0).any(dim=1).to(torch.int32)
+    cnt, tsum, any_ev = _cell_histogram(xytp, n_valid, height, width,
+                                        "folded", scatter, precise)
     state_f, vol = taf_update_leaky(state_f, cnt, tsum, any_ev,
                                     height=height, width=width)
     B, H, WF = state_f.shape
@@ -359,37 +373,46 @@ def taf_stream_step_kernel_p64(state_f, xytp, n_valid, any_events=None, *,
                                scatter: str = "pallas", precise: bool = False,
                                fold_output: bool = False):
     """One streaming TAF step on the patchified p64 queue
-    (pallas_update.py:304-393), K = 8. scatter="pallas" with precise=False
-    is the raw path: B1 in the p64 cell order, then the fused update + leaky
-    (B3). scatter="pallas" with precise=True runs kernel B6 on the same
-    cells, scatter="sorted" runs `scatter_cnt_tsum_sorted`, and both then
-    the update from plane-shaped histograms (B5).
+    (pallas_update.py:304-393), K from the state's width: 8 or 4.
+
+    At K = 8, scatter="pallas" with precise=False is the raw path: B1 in
+    the p64 cell order, then the fused update + leaky (B3). scatter="pallas"
+    with precise=True runs kernel B6 on the same cells, scatter="sorted"
+    runs `scatter_cnt_tsum_sorted`, and both then the update from
+    plane-shaped histograms (B5).
+
+    At K = 4 the same three histograms (B1, B6, sorted) feed B2: the p64
+    cell order ((y2*W2 + x2)*4 + s)*2 + p is the folded (y*W + x)*2 + p
+    order of an (H/2, (W/2)*4) grid of subpixel columns, whose 2K = 8
+    queue positions are one subpixel block, so the planes go to B2 as they
+    are and B2 takes JAX's bf16 mean (:381-389) inside itself.
 
     any_events: optional (B,) flags that replace the per-stream any-event
     flag (B1's, or cnt > 0 off the raw path), for spatially sharded callers
     that must pass the global one (a shard with no local events still ages
     with the rest of the frame).
     Returns (state_f, vol), state_f updated in place; vol (B, H/2,
-    (W/2)*64) bf16 folded when fold_output, else its (B, H/2, W/2, 64)
+    (W/2)*8K) bf16 folded when fold_output, else its (B, H/2, W/2, 8K)
     view."""
     _check_scatter("taf_stream_step_kernel_p64", scatter)
-    _check_p64_geometry(state_f, height, width)
+    K = _check_p64_geometry(state_f, height, width, Ks=(8, 4))
     B, H2, WF = state_f.shape
-    if scatter == "pallas" and not precise:
-        cnt, tsum, any_ev = scatter_cnt_tsum(xytp, n_valid, height=height,
-                                             width=width, layout="p64")
+    W2 = width // 2
+    cnt, tsum, any_ev = _cell_histogram(xytp, n_valid, height, width, "p64",
+                                        scatter, precise)
+    if any_events is not None:
+        any_ev = any_events.to(device=any_ev.device, dtype=torch.int32)
+    if K != 8:
+        update = taf_update_leaky
+        hw = dict(height=H2, width=W2 * 4)
+    elif scatter == "pallas" and not precise:
         update = taf_update_leaky_raw
         hw = dict(height=height, width=width)
     else:
-        cnt, tsum = _cell_histogram(xytp, n_valid, height, width, "p64",
-                                    scatter, precise)
-        any_ev = (cnt > 0).any(dim=1).to(torch.int32)
         cnt, tsum = cnt.view(B, H2, -1), tsum.view(B, H2, -1)
         update = taf_update_leaky_v2
-        hw = dict(height=H2, width=(width // 2) * 4)
-    if any_events is not None:
-        any_ev = any_events.to(device=any_ev.device, dtype=torch.int32)
+        hw = dict(height=H2, width=W2 * 4)
     state_f, vol = update(state_f, cnt, tsum, any_ev, **hw)
     if fold_output:
         return state_f, vol
-    return state_f, vol.view(B, H2, WF // 64, 64)
+    return state_f, vol.view(B, H2, W2, 8 * K)

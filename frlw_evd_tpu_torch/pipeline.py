@@ -1,5 +1,7 @@
 """Streaming TAF-K8 → AED serving paths (counterpart of bench.py's
-make_pipeline_kernel, make_pipeline_p64 and _detect_body).
+make_pipeline, make_pipeline_packed, make_pipeline_kernel,
+make_pipeline_p64 and _detect_body) and the streaming encoder runner
+(bench.py's run_encoder_bench).
 
 Per 10 ms bin, for B parallel streams:
   encode_transform(state_f, xytp, n_valid):
@@ -11,6 +13,14 @@ Per 10 ms bin, for B parallel streams:
       p64 stem (folded (B, H/2, (W/2)*64) for `bfm_folded`), no resize;
       with scatter="sorted", the plain sorted histogram and kernel B5 (on
       the GEN1 path, that histogram and B2);
+      unpacked (`make_pipeline`, state (B, H, W, 2, K)): the MXU histogram
+      function (kernel B6 on the card), the sorted one or an exact
+      index_add_ → the queue update in torch → packed leaky volume →
+      nearest resize, or with p64_input four block gathers into the
+      patchified input of a `bfm_p64` stem;
+      packed (`make_pipeline_packed`, state (B, H, W, 2K)): B1, B6, the
+      sorted, MXU or exact histogram → the update in torch → leaky →
+      resize;
   detect(vol):
       AED forward in the serving dtype → f32 decode → conf 0.3, top-100,
       NMS 0.6 → (dets (B, 100, 6), keep (B, 100)); with quant=(scales,
@@ -29,6 +39,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .encode.common import nearest_resize_indices
+from .encode.count_image import encode_count_image_batch
+from .encode.streaming import (PACKED_SCATTERS, event_frame_stream,
+                               event_volume_stream, sae_stream,
+                               taf_pack_state, taf_stream_step,
+                               taf_stream_step_packed)
+from .encode.taf import INIT_VALUE, leaky_transform
 from .encode.update import (init_state, p64_init_state,
                             taf_stream_step_kernel,
                             taf_stream_step_kernel_p64)
@@ -51,17 +68,6 @@ def resolve_device(device) -> torch.device:
                            "available; pass device='cpu' to run the plain "
                            "PyTorch twins instead of the CUDA kernels")
     return dev
-
-
-def nearest_resize_indices(sensor_hw, input_hw, device=None):
-    """Row and column source indices of the nearest resize, computed as
-    the JAX pipeline does: float32 arange * (h / H) truncated
-    (bench.py:204-205; 304/320 is not exact in binary, so the f32 product
-    decides the indices)."""
-    (h, w), (H, W) = sensor_hw, input_hw
-    ys = (np.arange(H, dtype=np.float32) * np.float32(h / H)).astype(np.int64)
-    xs = (np.arange(W, dtype=np.float32) * np.float32(w / W)).astype(np.int64)
-    return (torch.from_numpy(ys).to(device), torch.from_numpy(xs).to(device))
 
 
 def nearest_resize(vol, ys, xs):
@@ -149,6 +155,141 @@ def make_pipeline_p64(model: EventDetector, sensor_hw,
                                           precise=False, fold_output=folded)
 
     return _attach_stages(encode_transform, model, quant)
+
+
+UNPACKED_SCATTERS = ("mxu", "sorted", "xla")
+# the 2x2 blocks of the patchified input, s-major [tl, bl, tr, br]
+# (bench.py:316-320): (row, column) offset of each
+P64_BLOCKS = ((0, 0), (1, 0), (0, 1), (1, 1))
+
+
+def make_pipeline(model: EventDetector, sensor_hw, input_hw,
+                  scatter: str = "mxu", *, p64_input: bool = False,
+                  device="cuda", dtype=torch.bfloat16, quant=None):
+    """Unpacked-state serving pipeline (bench.py:279-353), the queue
+    (B, H, W, 2, K) f32 updated in place by `taf_stream_step`
+    (precise=False) with scatter "mxu" (`scatter_cnt_tsum_mxu`, kernel B6
+    on the card), "sorted" or "xla" (exact index_add_); "pallas" is refused,
+    as in JAX. The volume is the packed leaky volume / 255 in bf16, then
+    the nearest resize to input_hw (indices from f64 products, as
+    bench.py:310-311 computes them); with p64_input, four quarter-resolution
+    block gathers [tl, bl, tr, br] make the patchified (B, h/2, w/2, 8K)
+    input of a `bfm_p64` stem. JAX's `fused` switch chooses how XLA
+    compiles the window; eager PyTorch has no counterpart, so it is not
+    taken: the stages run as JAX's fused=False does. quant as in
+    make_pipeline_kernel."""
+    if scatter not in UNPACKED_SCATTERS:
+        raise ValueError(f"make_pipeline supports scatter 'mxu', 'sorted' "
+                         f"or 'xla' (serial), got {scatter!r}: the pallas "
+                         f"formulation needs the packed/kernel/p64 pipeline")
+    dev = _serving_model(model, device, dtype)
+    ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev, torch.float64)
+
+    def encode_transform(state, xytp, n_valid):
+        state = taf_stream_step(state, xytp, n_valid, precise=False,
+                                use_sorted=scatter == "sorted",
+                                use_mxu=scatter == "mxu")
+        vol = (leaky_transform(taf_pack_state(state)) / 255.0).to(
+            torch.bfloat16)
+        if p64_input:
+            return state, torch.cat(
+                [nearest_resize(vol, ys[sy::2], xs[sx::2])
+                 for sy, sx in P64_BLOCKS], -1)
+        if tuple(input_hw) != tuple(sensor_hw):
+            vol = nearest_resize(vol, ys, xs)
+        return state, vol
+
+    return _attach_stages(encode_transform, model, quant)
+
+
+def make_pipeline_packed(model: EventDetector, sensor_hw, input_hw,
+                         scatter: str = "pallas", *, device="cuda",
+                         dtype=torch.bfloat16, quant=None):
+    """Packed-state serving pipeline (bench.py:232-251): the queue
+    (B, H, W, 2K) f32 in the network channel order, updated in place by
+    `taf_stream_step_packed` (precise=False; scatter "pallas" is kernel
+    B1, "mxu" kernel B6 on the card, "sorted", "xla"), then leaky / 255 in
+    bf16 and the nearest resize to input_hw. quant as in
+    make_pipeline_kernel."""
+    if scatter not in PACKED_SCATTERS:
+        raise ValueError(f"make_pipeline_packed supports scatter "
+                         f"{PACKED_SCATTERS}, got {scatter!r}")
+    dev = _serving_model(model, device, dtype)
+    ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev)
+
+    def encode_transform(state, xytp, n_valid):
+        state = taf_stream_step_packed(state, xytp, n_valid,
+                                       scatter=scatter, precise=False)
+        vol = (leaky_transform(state) / 255.0).to(torch.bfloat16)
+        if tuple(input_hw) != tuple(sensor_hw):
+            vol = nearest_resize(vol, ys, xs)
+        return state, vol
+
+    return _attach_stages(encode_transform, model, quant)
+
+
+def new_stream_state(batch: int, sensor_hw, layout: str, *,
+                     device="cuda") -> torch.Tensor:
+    """Fresh TAF-K8 queue filled with -6000 for `make_pipeline` (layout
+    "unpacked": (B, H, W, 2, K)) or `make_pipeline_packed` ("packed":
+    (B, H, W, 2K))."""
+    h, w = sensor_hw
+    shapes = {"unpacked": (batch, h, w, 2, K), "packed": (batch, h, w, 2 * K)}
+    if layout not in shapes:
+        raise ValueError(f"layout must be one of {sorted(shapes)}, got "
+                         f"{layout!r}")
+    return torch.full(shapes[layout], INIT_VALUE, dtype=torch.float32,
+                      device=resolve_device(device))
+
+
+ENCODERS = ("eci", "frame", "ev", "sae")
+WINDOW_US = 10000
+
+
+def make_encoder_step(kind: str, sensor_hw, *, sae_impl: str = "sorted",
+                      device="cuda"):
+    """The per-window step of one streaming encoder, as run_encoder_bench
+    builds it (bench.py:586-610): `step(state, xytp, n_valid, now) ->
+    (out, state)` with xytp (B, E, 4) [x, y, t (µs), p] on `device`, now
+    the window's end in µs, state None at the first window and carried on
+    the device after it. kind: "eci" (count image, stateless), "frame"
+    (occupancy, stateless), "ev" (incremental event volume, 5 bins) or
+    "sae" (`sae_impl` "sorted" or "max")."""
+    if kind not in ENCODERS:
+        raise ValueError(f"kind must be one of {ENCODERS}, got {kind!r}")
+    dev = resolve_device(device)
+    h, w = sensor_hw
+    encoders = {
+        "eci": lambda state, ev, nv, now: (encode_count_image_batch(
+            ev[..., :4], nv, height=h, width=w), None),
+        "frame": lambda state, ev, nv, now: event_frame_stream(
+            ev, nv, None, height=h, width=w),
+        "ev": lambda state, ev, nv, now: event_volume_stream(
+            ev, nv, state, now, height=h, width=w, bins=5),
+        "sae": lambda state, ev, nv, now: sae_stream(
+            ev, nv, state, now, height=h, width=w, impl=sae_impl),
+    }
+    encode = encoders[kind]
+
+    def step(state, xytp, n_valid, now):
+        if xytp.device.type != dev.type or n_valid.device.type != dev.type:
+            raise ValueError(f"make_encoder_step({kind!r}) runs on {dev}; "
+                             f"got inputs on {xytp.device}, "
+                             f"{n_valid.device}")
+        return encode(state, xytp, n_valid, now)
+
+    return step
+
+
+def encoder_events(events: np.ndarray) -> np.ndarray:
+    """Synthetic windows with real µs timestamps, as run_encoder_bench
+    makes them (bench.py:582-585): window i spans [i*10 ms, (i+1)*10 ms).
+    events: (steps, B, E, 4) with t in [0, 1] (synth_events); returns a
+    copy."""
+    out = np.array(events)
+    for i in range(out.shape[0]):
+        out[i, ..., 2] = (i + out[i, ..., 2]) * float(WINDOW_US)
+    return out
 
 
 def calibrate_pipeline(run_step, model: EventDetector, f32_state, state,

@@ -672,3 +672,84 @@ def test_folded_stem_sees_optimizer_updates(cuda):
     torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
     assert (out.float() - first.float()).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("precise", [True, False])
+def test_mxu_histogram_launches_b6_and_matches_twin(cuda, precise):
+    """scatter_cnt_tsum_mxu on the card: JAX's bf16 rounding of the
+    addends, then one B6 launch; equal to the CPU route (B6's twin) bit for
+    bit, since every rounded t - 1 is a multiple of 2^-24. A counted value
+    outside B6's range raises."""
+    from frlw_evd_tpu_torch.encode import scatter_cnt_tsum_mxu
+
+    ev, nv = _events(B=4, E=4096, seed=3)
+    idx, tv, valid = event_cells(ev, nv, *SENSOR)
+    before = scatter_cnt_tsum_pallas_sorted.launches
+    cnt, tsum = scatter_cnt_tsum_mxu(idx.to(cuda), tv.to(cuda),
+                                     valid.to(cuda), SENSOR[0] * SENSOR[1]
+                                     * 2, precise)
+    torch.cuda.synchronize()
+    assert scatter_cnt_tsum_pallas_sorted.launches == before + 1
+    c_cnt, c_tsum = scatter_cnt_tsum_mxu(idx, tv, valid,
+                                         SENSOR[0] * SENSOR[1] * 2, precise)
+    assert torch.equal(cnt.cpu(), c_cnt) and torch.equal(tsum.cpu(), c_tsum)
+    with pytest.raises(ValueError, match="B6"):
+        scatter_cnt_tsum_mxu(idx.to(cuda), tv.to(cuda) * 1000.0,
+                             valid.to(cuda), SENSOR[0] * SENSOR[1] * 2)
+
+
+@pytest.mark.parametrize("scatter,precise", [("pallas", False),
+                                             ("pallas", True),
+                                             ("sorted", False)],
+                         ids=["raw", "precise", "sorted"])
+def test_p64_k4_step_launches_b2_and_matches_cpu(cuda, scatter, precise):
+    """The p64 step at K = 4 on the card: B2 at (H/2, (W/2)*4) with
+    2K = 8, one launch a window, three windows carrying state, state exact
+    and volume within one bf16 ulp of the CPU step (the twins)."""
+    from frlw_evd_tpu_torch.encode import (p64_init_state,
+                                           taf_stream_step_kernel_p64)
+
+    H, W = P64_SENSOR
+    states = {d: p64_init_state(4, H, W, K=4, device=d)
+              for d in ("cpu", cuda)}
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(2), 3, 4,
+                                          4096, P64_SENSOR)
+    before = taf_update_leaky.launches
+    for i in range(3):
+        vols = {}
+        for d in states:
+            states[d], vols[d] = taf_stream_step_kernel_p64(
+                states[d], torch.from_numpy(ev[i]).to(d),
+                torch.from_numpy(nv[i]).to(d), height=H, width=W,
+                scatter=scatter, precise=precise)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(states[cuda].cpu(), states["cpu"],
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(vols[cuda].cpu().float(),
+                                   vols["cpu"].float(), rtol=0,
+                                   atol=2.0 ** -8)
+    assert taf_update_leaky.launches == before + 3
+
+
+@pytest.mark.parametrize("scatter", ["pallas", "sorted"])
+def test_folded_step_launches_b2_and_matches_cpu(cuda, scatter):
+    """The folded TAF step of streaming.py on the card: its update is one
+    B2 launch a window; three windows carrying state, state equal to the
+    CPU step's (the twins) bit for bit."""
+    from frlw_evd_tpu_torch.encode import init_state
+    from frlw_evd_tpu_torch.encode.streaming import taf_stream_step_folded
+
+    H, W = SENSOR
+    states = {d: init_state(4, H, W, device=d) for d in ("cpu", cuda)}
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(4), 3, 4,
+                                          4096, SENSOR)
+    before = taf_update_leaky.launches
+    for i in range(3):
+        for d in states:
+            taf_stream_step_folded(states[d], torch.from_numpy(ev[i]).to(d),
+                                   torch.from_numpy(nv[i]).to(d), height=H,
+                                   width=W, scatter=scatter)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(states[cuda].cpu(), states["cpu"],
+                                   rtol=0, atol=0)
+    assert taf_update_leaky.launches == before + 3

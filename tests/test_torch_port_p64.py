@@ -187,17 +187,77 @@ def test_p64_step_global_any_events_flag(rng):
                                np.asarray(j_vol, np.float32), atol=2.0 ** -8)
 
 
-@pytest.mark.parametrize("height,width,K_", [(32, 40, 8), (32, 64, 4),
+@pytest.mark.parametrize("height,width,K_", [(32, 40, 8), (32, 64, 2),
                                              (31, 64, 8)],
-                         ids=["w2_not_16", "k4", "odd_height"])
+                         ids=["w2_not_16", "k2", "odd_height"])
 def test_p64_step_refuses_what_the_kernel_refuses(height, width, K_):
-    """(W/2) % 16 != 0, K != 8 and an odd sensor raise on CPU tensors too,
-    so the twin accepts no geometry that the kernel path refuses."""
+    """(W/2) % 16 != 0 at K = 8, K outside {4, 8} (B2's body takes 2K = 8
+    and the K = 8 kernels 2K = 16) and an odd sensor raise on CPU tensors
+    too, so the twin accepts no geometry that the kernel path refuses."""
     st = torch.full((1, height // 2, (width // 2) * 8 * K_), -6000.0)
     ev = torch.zeros(1, 16, 4)
     with pytest.raises(ValueError, match="p64"):
         taf_stream_step_kernel_p64(st, ev, torch.ones(1, dtype=torch.int32),
                                    height=height, width=width)
+
+
+P64_K4_CASES = {"raw": dict(scatter="pallas", precise=False),
+                "precise": dict(scatter="pallas", precise=True),
+                "sorted": dict(scatter="sorted", precise=False)}
+
+
+@pytest.mark.parametrize("sensor", [(32, 64), (32, 40)],
+                         ids=["w2_16", "w2_20"])
+@pytest.mark.parametrize("case", list(P64_K4_CASES))
+def test_p64_step_k4_matches_jax_over_windows(rng, case, sensor):
+    """The K = 4 branch (pallas_update.py:381-389): each histogram (B1 in
+    p64 order, B6, sorted) feeds B2 at (H/2, (W/2)*4), three windows
+    carrying state (full, partial with out-of-crop events, stream 1 empty:
+    the freeze), state 1e-2 and volume 2e-2 as the K = 8 step. At K = 4
+    (W/2) % 16 need not hold (W = 40)."""
+    B, E = 2, 800
+    H, W = sensor
+    kw = dict(height=H, width=W, **P64_K4_CASES[case])
+    st = p64_init_state(B, H, W, K=4, device="cpu")
+    j_st = jax_p64_init(B, H, W, 4)
+    assert st.shape == j_st.shape == (B, H // 2, (W // 2) * 32)
+    for i, n1 in enumerate((E, 300, 0)):
+        ev = _events(rng, B, E, H, W)
+        ev[0, :30, 0] = W + 1.0
+        ev[1, :30, 3] = 2.0
+        nv = np.array([E, n1], np.int32)
+        prev = st.clone()
+        st, vol = taf_stream_step_kernel_p64(st, torch.from_numpy(ev),
+                                             torch.from_numpy(nv), **kw)
+        j_st, j_vol = jax_step_p64(j_st, jnp.asarray(ev), jnp.asarray(nv),
+                                   **kw)
+        assert vol.shape == j_vol.shape == (B, H // 2, W // 2, 32)
+        np.testing.assert_allclose(st.numpy(), np.asarray(j_st), atol=1e-2,
+                                   err_msg=f"state, window {i}")
+        np.testing.assert_allclose(vol.float().numpy(),
+                                   np.asarray(j_vol, np.float32), atol=2e-2,
+                                   err_msg=f"volume, window {i}")
+        if n1 == 0:
+            torch.testing.assert_close(st[1], prev[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", list(P64_K4_CASES))
+def test_p64_step_k4_is_the_newest_half_of_k8(rng, case):
+    """The K = 4 queue holds the four newest bins of the K = 8 one: from
+    fresh states on the same events, its volume equals the first 8
+    channels of each 16-channel subpixel block of the K = 8 volume (the
+    gate phase 24 of chip_smoke.py holds the card to)."""
+    B, E, H, W = 2, 800, 32, 64
+    kw = dict(height=H, width=W, fold_output=True, **P64_K4_CASES[case])
+    s4 = p64_init_state(B, H, W, K=4, device="cpu")
+    s8 = p64_init_state(B, H, W, K=8, device="cpu")
+    for i in range(3):
+        ev = torch.from_numpy(_events(rng, B, E, H, W))
+        nv = torch.tensor([E, 500 if i else 0], dtype=torch.int32)
+        s4, v4 = taf_stream_step_kernel_p64(s4, ev, nv, **kw)
+        s8, v8 = taf_stream_step_kernel_p64(s8, ev, nv, **kw)
+        newest = v8.view(B, H // 2, -1, 16)[..., :8].reshape(v4.shape)
+        torch.testing.assert_close(v4, newest, rtol=0, atol=0)
 
 
 def _chain_tree(rng):
