@@ -139,7 +139,32 @@ Phases (any failure exits non-zero; no phase catches and continues):
      median run with the runs' spread (host clock), device ms a window;
      sae sorted and max within rtol 1e-3, atol 1e-2;
  27. every function of phases 24-26 and the offline encoders on a small
-     input, card against CPU, at the CPU tests' tolerances.
+     input, card against CPU, at the CPU tests' tolerances;
+ 28. the data path at full GEN1 width under build/chip_smoke: a synthetic
+     tree (data/synthetic: 8 train and 2 val streams of 2 s, 24
+     annotation times 40 ms apart), tools.generate_taf on the card and
+     (val) on the CPU, the val blobs card against CPU and each against
+     the oracle's (share of bytes off by more than one below 1e-3), then
+     Trainer.train() of taf_bfm / gen1 (AED 256 wide, bfm stem, batch 64,
+     bf16 over f32 masters) for 2 epochs with validation each epoch:
+     every loss and COCO stat finite, last_epoch and best_epoch written,
+     no kernel launched; one more epoch under torch.profiler; then
+     `python -m frlw_evd_tpu_torch.cli.test --resume_exp` in a
+     subprocess on the val split, its stats equal to the in-process
+     validation of best_epoch within 1e-6; ms/step, the share of it the
+     loop waits for the loader, the device's busy share, the evaluator's
+     seconds, the generator's ms a blob, beside phase 17's gen1_train;
+ 29. tools.stream_infer over one 2 s recording of that tree at batch 1,
+     f32, AED 256 wide: first B6 at B = 1, E = 16384 on the cells of
+     every window against its twin bit for bit, timed; 5 windows through
+     the tool's command line with phase 28's best_epoch; then 200
+     windows with phase 4's weights: B6 launched once every window,
+     detections finite, the -out npz in the JAX tool's layout;
+     windows/s, window latency p50 / p99 (host clock);
+ 30. card against CPU, small, f32 with TF32 off: one Trainer epoch of a
+     narrow taf_bfm AED on a 120x152 tree (losses rtol 2e-4, BatchNorm
+     statistics 1e-5), its eval_epoch (detections by DET_GATES, COCO
+     stats within 1e-3) and 20 windows of stream_infer at 60x76.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -152,8 +177,10 @@ windows/s and ms/step are on the host clock.
 
 from __future__ import annotations
 
+import ast
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2223,6 +2250,413 @@ def check_new_encode_against_cpu(enc, pipeline, dev):
             f"rtol {rtol})")
 
 
+# phases 28-30 work under the checkout's build/ (gitignored), emptied first
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# phase 28's GEN1 tree: 2 s streams of two moving boxes and noise (about
+# 4500 events a 10 ms window), annotated every 40 ms from 0.6 s (the
+# evaluation skips the first 0.5 s); 8 train streams x 24 annotation times
+# = 3 steps an epoch at batch 64, 2 val streams
+GEN1_TREE = dict(ann_times=tuple(600_000 + 40_000 * i for i in range(24)),
+                 duration=2_000_000, sensor_hw=GEN1_SENSOR,
+                 input_hw=GEN1_INPUT, events_per_box=400_000,
+                 noise_events=100_000)
+TRAIN_STREAMS, VAL_STREAMS, TREE_BATCH, TREE_EPOCHS = 8, 2, 64, 2
+# tests/test_generators.py's gate: the share of blob bytes off by more than
+# one below 1e-3 (f32 sums in another order may flip a uint8 boundary)
+BLOB_GATE = 1e-3
+STREAM_WINDOWS = 200
+# card against CPU (phase 30), f32 with TF32 off: the kept rows the same, as
+# phase 5 holds the keep masks, each box within box_atol + box_rtol * |box|
+# (w and h are exp() of the head's output, so their error grows with
+# them) and each score within `score`; the COCO stats within STATS_GATE
+DET_GATES = {"box_atol": 1e-2, "box_rtol": 1e-4, "score": 1e-4}
+STATS_GATE = 1e-3
+
+
+def build_gen1_tree(root):
+    """Phase 28's tree (GEN1_TREE) under root: the train split without
+    oracle blobs, the val split with the oracle's TAF blobs."""
+    from frlw_evd_tpu_torch.data import synthetic
+
+    synthetic.build_mini_gen1(
+        root, np.random.default_rng(10), splits=("train",), blobs=(),
+        streams=tuple(f"train{i}" for i in range(TRAIN_STREAMS)),
+        **GEN1_TREE)
+    return synthetic.build_mini_gen1(
+        root, np.random.default_rng(11), splits=("val",), blobs=("taf",),
+        streams=tuple(f"val{i}" for i in range(VAL_STREAMS)), **GEN1_TREE)
+
+
+def blob_off_share(a_dir, b_dir, split):
+    """The largest share of bytes differing by more than one between the
+    TAF blobs of `split` under two trees, over every blob of a_dir."""
+    worst, n = 0.0, 0
+    for bins in ("bins4", "bins8"):
+        for path in sorted((Path(a_dir) / split / bins).glob("*.npy")):
+            a = np.fromfile(path, np.uint8).astype(np.int16)
+            b = np.fromfile(Path(b_dir) / split / bins / path.name,
+                            np.uint8).astype(np.int16)
+            if a.shape != b.shape:
+                raise SystemExit(f"{path.name}: {a.shape} against {b.shape}")
+            worst = max(worst, float((np.abs(a - b) > 1).mean()))
+            n += 1
+    if not n:
+        raise SystemExit(f"no blobs under {a_dir}/{split}")
+    return worst, n
+
+
+def run_data_path(counters, dev, card, synthetic_train):
+    """Phase 28: the data path at full GEN1 width. A synthetic GEN1 tree
+    (build_gen1_tree); tools.generate_taf on the card (every split) and on
+    the CPU (val), the val blobs held card against CPU and each against
+    the oracle's (BLOB_GATE); Trainer.train() of taf_bfm / gen1 (the AED
+    256 wide, bfm stem, batch 64, bf16 over f32 masters) for TREE_EPOCHS
+    epochs with validation every epoch, every loss and COCO stat finite,
+    last_epoch and best_epoch written, no kernel launched; one more epoch
+    under torch.profiler for the device's busy share; then cli.test in a
+    subprocess on the val split as its test split, whose stats must equal
+    the in-process validation of best_epoch to 1e-6. Prints ms/step and
+    the share of it the loop waited for the loader, the evaluator's
+    seconds and the generator's ms a blob beside phase 17's synthetic
+    gen1_train. Returns what phase 29 needs."""
+    from frlw_evd_tpu_torch import train
+    from frlw_evd_tpu_torch.tools.generate_taf import generate_taf
+    from frlw_evd_tpu_torch.utils.profiling import device_busy_us
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = build_gen1_tree(str(WORK / "gen1"))
+    log(f"GEN1 tree ({TRAIN_STREAMS} + {VAL_STREAMS} streams of "
+        f"{GEN1_TREE['duration'] / 1e6:.1f} s, "
+        f"{len(GEN1_TREE['ann_times'])} annotation times each; the val "
+        f"split's oracle TAF blobs): {time.perf_counter() - t0:.1f} s")
+    out = {d: str(WORK / f"gen_{d}") for d in ("cuda", "cpu")}
+    gen = {"cuda": generate_taf(tree["events"], tree["labels"], out["cuda"],
+                                "gen1", dev),
+           "cpu": generate_taf(tree["events"], tree["labels"], out["cpu"],
+                               "gen1", "cpu", splits=("val",))}
+    n_train = len(list((Path(out["cuda"]) / "taf" / "train" / "bins8")
+                       .glob("*.npy")))
+    if n_train != TRAIN_STREAMS * len(GEN1_TREE["ann_times"]):
+        raise SystemExit(f"generate_taf wrote {n_train} train blobs")
+    pairs = {"card vs CPU": (out["cuda"] + "/taf", out["cpu"] + "/taf"),
+             "card vs oracle": (out["cuda"] + "/taf", tree["taf_dir"]),
+             "CPU vs oracle": (out["cpu"] + "/taf", tree["taf_dir"])}
+    for label, (a, b) in pairs.items():
+        worst, n = blob_off_share(a, b, "val")
+        log(f"generate_taf val blobs, {label}: largest share off by more "
+            f"than one {worst:.2e} over {n} blobs (gate {BLOB_GATE})")
+        if worst >= BLOB_GATE:
+            raise SystemExit(f"generate_taf {label}: {worst} >= {BLOB_GATE}")
+    gen_ms = {d: g["encode_s"] / g["blobs"] * 1e3 for d, g in gen.items()}
+    log(f"generate_taf on {card}: {gen_ms['cuda']:.2f} ms a blob pair over "
+        f"{gen['cuda']['blobs']}; the CPU {gen_ms['cpu']:.2f} over "
+        f"{gen['cpu']['blobs']} (queue update to host read, host clock)")
+
+    name = "gen1_taf_bfm"
+    cfg = train.make_config(
+        "taf_bfm", dataset="gen1", batch_size=TREE_BATCH,
+        data_path=out["cuda"] + "/taf", bbox_path=tree["labels"],
+        log_path=str(WORK / "log"), exp_name=name, event_volume_bins=K,
+        max_epoch_to_stop=TREE_EPOCHS, reduce_evaluate=False)
+    for fn in counters.values():
+        fn.launches = 0
+    trainer = train.Trainer(cfg, device=dev)
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise SystemExit(f"the Trainer launched a kernel: {launches}")
+    hist = trainer.history
+    if len(hist) != TREE_EPOCHS or any("val" not in h for h in hist):
+        raise SystemExit(f"Trainer.train ran {len(hist)} epochs")
+    losses = [v for h in hist for lo in h["losses"] for v in lo.values()]
+    stats = [v for h in hist for v in h["val"]["stats"]]
+    if not (all(np.isfinite(losses)) and all(np.isfinite(stats))):
+        raise SystemExit(f"non-finite loss or COCO stat: {hist}")
+    ckpts = Path(trainer.ckpt_dir)
+    for f in ("last_epoch", "best_epoch", "last_epoch_backbone.pth",
+              "last_epoch_neck.pth"):
+        if not (ckpts / f).exists():
+            raise SystemExit(f"Trainer.train wrote no {f}")
+    for h in hist:
+        log(f"epoch {h['epoch']} on {card}: {h['steps']} steps at batch "
+            f"{TREE_BATCH}, {h['wall_s'] / h['steps'] * 1e3:.1f} ms/step, "
+            f"the loop waiting for the loader "
+            f"{h['loader_wait_s'] / h['wall_s']:.1%} of it; total_loss by "
+            f"step " + ", ".join(f"{lo['total_loss']:.4f}"
+                                 for lo in h["losses"])
+            + f"; validation {h['val']['loop_s']:.2f} s detecting, "
+            f"{h['val']['coco_s']:.3f} s in the evaluator, COCO stats "
+            + ", ".join(f"{v:.4f}" for v in h["val"]["stats"]))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.train_epoch()
+    prof_epoch = trainer.history[-1]
+    busy = device_busy_us(prof.events()) / 1e6
+    log(f"one more epoch under torch.profiler: "
+        f"{prof_epoch['wall_s'] / prof_epoch['steps'] * 1e3:.1f} ms/step, "
+        f"the device busy {busy / prof_epoch['wall_s']:.1%} of it, the loop "
+        f"waiting for the loader "
+        f"{prof_epoch['loader_wait_s'] / prof_epoch['wall_s']:.1%}; phase 17's "
+        f"synthetic gen1_train (device-resident batches) "
+        f"{synthetic_train['ms_per_step']:.1f} ms/step")
+
+    best = next(h for h in hist if h["val"]["stats"][0] == trainer.max_score)
+    for split_dir in (Path(tree["labels"]), Path(out["cuda"]) / "taf"):
+        shutil.rmtree(split_dir / "test", ignore_errors=True)
+        (split_dir / "test").symlink_to("val")
+    cmd = [sys.executable, "-m", "frlw_evd_tpu_torch.cli.test",
+           "--exp_type", "taf_bfm", "--dataset", "gen1",
+           "--batch_size", str(TREE_BATCH), "--event_volume_bins", str(K),
+           "--data_path", cfg.data_path, "--bbox_path", cfg.bbox_path,
+           "--log_path", cfg.log_path, "--resume_exp", name]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise SystemExit(f"cli.test failed:\n{res.stdout}\n{res.stderr}")
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("COCO stats:")][-1]
+    cli_stats = np.array(ast.literal_eval(line.split(":", 1)[1]),
+                         np.float64)
+    diff = np.abs(cli_stats - np.array(best["val"]["stats"])).max()
+    log(f"cli.test --resume_exp {name} (best_epoch = epoch {best['epoch']}) "
+        f"in {time.perf_counter() - t0:.1f} s: {line}; within {diff:.1e} "
+        f"of the in-process validation")
+    if diff > 1e-6:
+        raise SystemExit(f"cli.test stats {cli_stats} against the "
+                         f"in-process {best['val']['stats']}")
+    return dict(tree=tree, checkpoint=str(ckpts / "best_epoch"))
+
+
+def b6_at_batch_one(enc, windows, sensor, rate):
+    """B6 on the cells of stream_infer's windows (B = 1, E = MAX_EVENTS,
+    t as scatter_cnt_tsum_mxu rounds it), bit for bit with its twin on
+    every window; timed on the busiest window beside its twin, index_add_
+    and its bound. Returns the timings."""
+    H, W = sensor
+    size = H * W * 2
+    busiest = None
+    for xytp, nv in windows:
+        idx, tv, valid = enc.event_cells(xytp, nv, H, W)
+        hi = tv.to(torch.bfloat16).float()
+        t = hi + (tv - hi).to(torch.bfloat16).float()
+        cnt, tsum = enc.scatter_cnt_tsum_pallas_sorted(idx, t, valid, size)
+        p_cnt, p_tsum = enc.scatter_cnt_tsum_pallas_sorted_plain(idx, t, valid,
+                                                                 size)
+        if not (torch.equal(cnt, p_cnt) and torch.equal(tsum, p_tsum)):
+            raise SystemExit("B6 at B = 1: counts or t-sums differ from the "
+                             "twin's")
+        if busiest is None or int(nv[0]) > int(busiest[-1][0]):
+            busiest = (idx, t, valid, nv)
+    idx, t, valid, nv = busiest
+    ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted(idx, t, valid,
+                                                            size))
+    plain_ms = time_ms(lambda: enc.scatter_cnt_tsum_pallas_sorted_plain(
+        idx, t, valid, size), n=5)
+    library_ms = index_add_ms(idx, t, valid, size)
+    bound_ms = (idx.numel() * (4 + 4 + 1) + 2 * size * 4) / rate * 1e3
+    log(f"B6 at B = 1, E = {idx.shape[1]}: bit for bit with its twin on all "
+        f"{len(windows)} windows; on the busiest ({int(nv[0])} events) "
+        f"{ms:.4f} ms, twin {plain_ms:.3f}, index_add_ {library_ms:.4f}, "
+        f"bound {bound_ms:.4f} ms (bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes", events=int(nv[0]))
+
+
+def run_stream_infer(enc, pipeline, data, counters, dev, card, rate):
+    """Phase 29: tools.stream_infer over one 2 s recording of phase 28's
+    tree at full GEN1 width, batch 1, f32: first B6 against its twin on
+    every window (b6_at_batch_one); then 5 windows through the tool's
+    command line with phase 28's best_epoch (-checkpoint), then
+    STREAM_WINDOWS windows with the AED's weights spread as in phase 4:
+    B6 launched once every window, every detection finite, the -out npz
+    in the JAX tool's layout.
+    Prints windows/s and each window's latency p50 / p99 (host clock, to
+    the tool's host read). Returns the launch counts and B6's timings."""
+    from frlw_evd_tpu_torch.events import PSEELoader
+    from frlw_evd_tpu_torch.models import build_detector
+    from frlw_evd_tpu_torch.tools import stream_infer as si
+
+    event_file = str(Path(data["tree"]["events"]) / "train" / "train0_td.dat")
+    sensor, _, nc = si.geometry("gen1")
+    loader = PSEELoader(event_file)
+    windows = []
+    while not loader.done and len(windows) < STREAM_WINDOWS:
+        events = loader.load_delta_t(si.BIN_US)
+        xytp, n = si.window_events(events, int(loader.current_time), "gen1")
+        windows.append((torch.from_numpy(xytp)[None].to(dev),
+                        torch.tensor([n], dtype=torch.int32, device=dev)))
+    if len(windows) < STREAM_WINDOWS:
+        raise SystemExit(f"the recording holds {len(windows)} windows")
+    b6 = b6_at_batch_one(enc, windows, sensor, rate)
+    del windows
+
+    # phase 28's best_epoch through the tool's own entry, 5 windows (the
+    # warm-up); then the timed run with phase 4's spread random weights, so
+    # that boxes pass conf 0.3 as with trained weights
+    si.main(["-event_file", event_file, "-dataset", "gen1", "-checkpoint",
+             data["checkpoint"], "-max_windows", "5"])
+    model = gen1_model(build_detector, pipeline).to(dev).eval()
+    model.to(memory_format=torch.channels_last)
+    npz = WORK / "stream_infer.npz"
+    for fn in counters.values():
+        fn.launches = 0
+    res = si.stream_infer(event_file, "gen1", out=str(npz),
+                          max_windows=STREAM_WINDOWS, device=dev,
+                          model=model, verbose=False)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n = len(res["ts"])
+    if n != STREAM_WINDOWS or launches[B6] != n or any(
+            v for k, v in launches.items() if k != B6):
+        raise SystemExit(f"stream_infer: {n} windows, launches {launches}")
+    if not all(np.isfinite(d).all() for d in res["dets"]):
+        raise SystemExit("stream_infer: a non-finite detection")
+    saved = np.load(npz)
+    rows = sum(len(d) for d in res["dets"])
+    want_t = np.concatenate([np.full(len(d), t) for d, t in
+                             zip(res["dets"], res["ts"])])
+    if (saved["dts"].shape != (rows, 7) or len(saved["file_names"]) != rows
+            or not np.array_equal(saved["dts"][:, 0], want_t)):
+        raise SystemExit(f"stream_infer npz: dts {saved['dts'].shape}, "
+                         f"{len(saved['file_names'])} names, {rows} rows")
+    lat = np.array(res["window_s"]) * 1e3
+    kept = sum(int((d[:, 5] > 0).sum()) for d in res["dets"])
+    log(f"stream_infer on {card}: {n} windows in {res['elapsed_s']:.2f} s = "
+        f"{n / res['elapsed_s']:.1f} windows/s at batch 1; window latency "
+        f"p50 {np.percentile(lat, 50):.2f} ms, p99 "
+        f"{np.percentile(lat, 99):.2f} ms, max {lat.max():.2f} ms (host "
+        f"clock, file read to the host read of the detections); {kept} "
+        f"detections; B6 launched {launches[B6]} times")
+    return launches, b6
+
+
+def small_stream_model(build_detector, pipeline):
+    """A narrow AED (stem bfm, 32 wide, 2 classes) with phase 5's spread
+    random weights, in training mode, dropout off."""
+    model = build_detector(2, stem="bfm", in_channels=(32, 32, 32),
+                           stem_out_channels=16, head_width=32,
+                           dropout_rate=0.0, train=True,
+                           generator=torch.Generator().manual_seed(0))
+    return pipeline.spread_random_weights_(model,
+                                           torch.Generator().manual_seed(1))
+
+
+def same_dets(label, got, want):
+    """Per window the same number of rows, each CPU row matched to a
+    distinct card row with the box and the score within DET_GATES (rows
+    whose scores tie may come in another order); prints the rows of one
+    side only otherwise. Returns the largest box and score errors."""
+    worst = {"box": 0.0, "score": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        free = list(range(len(g)))
+        unmatched = []
+        for row in w:
+            limit = (DET_GATES["box_atol"]
+                     + DET_GATES["box_rtol"] * np.abs(row[:-1]))
+            err = [(np.abs(g[j, :-1] - row[:-1]).max(),
+                    abs(g[j, -1] - row[-1]), j) for j in free
+                   if (np.abs(g[j, :-1] - row[:-1]) <= limit).all()]
+            hits = [e for e in err if e[1] <= DET_GATES["score"]]
+            if not hits:
+                unmatched.append(row)
+                continue
+            box, score, j = min(hits)
+            free.remove(j)
+            worst = {"box": max(worst["box"], float(box)),
+                     "score": max(worst["score"], float(score))}
+        if unmatched or free:
+            raise SystemExit(
+                f"{label} window {i}: {len(g)} rows on the card, {len(w)} on "
+                f"the CPU; CPU rows without a card row within {DET_GATES}: "
+                f"{unmatched}; card rows left: {[g[j] for j in free]}")
+    return worst
+
+
+def check_data_path_against_cpu(pipeline, build_detector, dev):
+    """Phase 30: card against CPU, small, f32 with TF32 off. One epoch of
+    a taf_bfm Trainer with small_stream_model on a 120x152 → 128x160
+    synthetic tree (3 steps at batch 2): losses within phase 19's rtol
+    2e-4, BatchNorm statistics within 1e-5; then eval_epoch: each window's
+    detections by DET_GATES, the COCO stats within STATS_GATE. Then the
+    first 20 windows of tools.stream_infer on a 60x76 recording
+    (gen1_mini) with that model in eval mode: DET_GATES."""
+    from frlw_evd_tpu_torch import train
+    from frlw_evd_tpu_torch.data import synthetic
+    from frlw_evd_tpu_torch.tools import stream_infer as si
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tree = synthetic.build_mini_gen1(
+            str(WORK / "small"), np.random.default_rng(3),
+            sensor_hw=(120, 152), input_hw=(128, 160), blobs=("taf",))
+        runs = {}
+        for d in ("cpu", dev):
+            cfg = train.make_config(
+                "taf_bfm", dataset="gen1", batch_size=2, num_workers=1,
+                data_path=tree["taf_dir"], bbox_path=tree["labels"],
+                log_path=str(WORK / "small_log"), exp_name=f"small_{d}",
+                event_volume_bins=K, augmentation=False,
+                half_precision=False, img_size_override=(128, 160),
+                sensor_hw_override=(120, 152))
+            trainer = train.Trainer(cfg, device=d)
+            trainer.model = small_stream_model(build_detector, pipeline)
+            trainer.create_datasets()
+            trainer.build(len(trainer.train_loader))
+            trainer.train_epoch()
+            evaluator = trainer.make_evaluator()
+            coco = trainer.eval_epoch(evaluator)
+            sd = {k: v.cpu() for k, v in trainer.model.state_dict().items()
+                  if k.endswith(STATS)}
+            runs[d] = (trainer.history[-1]["losses"], sd,
+                       evaluator.dt_to_eval, np.array(coco))
+        (c_loss, c_sd, c_dt, c_coco), (g_loss, g_sd, g_dt, g_coco) = (
+            runs["cpu"], runs[dev])
+        loss_err = max(abs(g[k] / c[k] - 1) for g, c in zip(g_loss, c_loss)
+                       for k in c if c[k] != 0)
+        stat_err = max((g_sd[k] - v).abs().max().item()
+                       for k, v in c_sd.items())
+        if loss_err > SMALL_TRAIN_GATES["losses"] or (
+                stat_err > SMALL_TRAIN_GATES["statistics"]):
+            raise SystemExit(f"small Trainer epoch: losses rel err "
+                             f"{loss_err}, statistics err {stat_err}")
+        det_err = same_dets("small eval_epoch", g_dt, c_dt)
+        coco_err = np.abs(g_coco - c_coco).max()
+        log(f"small Trainer epoch, card vs CPU: {len(c_loss)} steps, losses "
+            f"rel err {loss_err:.2e}, BatchNorm statistics err "
+            f"{stat_err:.2e}; eval_epoch over {len(c_dt)} windows: "
+            f"detections within {det_err}, COCO stats "
+            + ", ".join(f"{v:.4f}" for v in c_coco)
+            + f" within {coco_err:.1e}")
+        if coco_err > STATS_GATE:
+            raise SystemExit(f"small eval_epoch: COCO stats {g_coco} on the "
+                             f"card, {c_coco} on the CPU")
+
+        mini = synthetic.build_mini_gen1(
+            str(WORK / "mini"), np.random.default_rng(4), streams=("seq0",),
+            splits=("test",), blobs=())
+        event_file = str(Path(mini["events"]) / "test" / "seq0_td.dat")
+        model = small_stream_model(build_detector, pipeline).eval()
+        dets = {}
+        for d in ("cpu", dev):
+            model.to(d)
+            dets[d] = si.stream_infer(event_file, "gen1_mini",
+                                      max_windows=20, device=d, model=model,
+                                      verbose=False)["dets"]
+        err = same_dets("small stream_infer", dets[dev], dets["cpu"])
+        log(f"small stream_infer (60x76 → 64x96), card vs CPU: 20 windows, "
+            f"{sum(len(x) for x in dets['cpu'])} rows, within {err}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2317,9 +2751,11 @@ def main() -> int:
 
     from frlw_evd_tpu_torch import train
     from frlw_evd_tpu_torch.models import build_detector
+    synthetic_train = {}
     for n, config in ((17, "gen1_train"), (18, "gen4_train")):
-        phase(n, config, run_train_config, train, build_detector, counters,
-              config, dev, card, name)
+        synthetic_train[config] = phase(n, config, run_train_config, train,
+                                        build_detector, counters, config,
+                                        dev, card, name)
         torch.cuda.empty_cache()
     phase(19, "small train step, card vs CPU", check_small_train_against_cpu,
           train, build_detector, dev)
@@ -2354,6 +2790,17 @@ def main() -> int:
                          pipeline, counters, dev, card))
     phase(27, "new encode functions small, card vs CPU",
           check_new_encode_against_cpu, enc, pipeline, dev)
+    torch.cuda.empty_cache()
+    data = phase(28, "data path", run_data_path, counters, dev, card,
+                 synthetic_train["gen1_train"])
+    torch.cuda.empty_cache()
+    by_path["stream_infer"], b6_b1 = phase(
+        29, "stream_infer", run_stream_infer, enc, pipeline, data, counters,
+        dev, card, rate)
+    rows["scatter_cnt_tsum_pallas_sorted"]["stream_infer_b1"] = b6_b1
+    phase(30, "data path small, card vs CPU", check_data_path_against_cpu,
+          pipeline, build_detector, dev)
+    shutil.rmtree(WORK, ignore_errors=True)
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
     # or at all, the first being the one at the entry's shape whose
@@ -2374,7 +2821,7 @@ def main() -> int:
             "scatter_cnt_tsum_pallas_sorted",
             ("gen4_precise", "gen4_p64k4_precise", "gen1_unpacked_mxu",
              "gen1_packed_precise", "gen1_packed_mxu", "gen1_taf_dense",
-             "gen1_taf_p64"),
+             "gen1_taf_p64", "stream_infer"),
             "frlw_evd_tpu_torch/csrc/scatter_sorted.cu",
             "frlw_evd_tpu/encode/pallas_scatter.py:343"),
         "scatter_cnt_tsum_pallas": ("scatter_cnt_tsum_pallas", ("gen1_b8",),
@@ -2434,7 +2881,7 @@ def main() -> int:
                                                "cudnn_bf16_ms",
                                                "ms_1x1", "int_mm_1x1_ms",
                                                "by_site", "map_host_us",
-                                               "gen4")
+                                               "gen4", "stream_infer_b1")
                            if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,6 +9,7 @@ package, so the outputs have fixed shapes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -100,3 +101,19 @@ def postprocess_image(decoded, **kwargs):
     """One image: decoded (A, 4+1+C) → (dets (K, 6), keep (K,))."""
     dets, keep = postprocess_batch(decoded[None], **kwargs)
     return dets[0], keep[0]
+
+
+def finalize_detections(dets, keep):
+    """Host side (postprocess.py:131-144): (N, K, 6) dets and (N, K) keep,
+    tensors on any device or arrays, → per image the kept rows as an
+    (n, 6) f32 numpy array, or one all-zero row where none is kept (the
+    reference's dummy row, yolo_head.py:277-278). One host read."""
+    if isinstance(dets, torch.Tensor):
+        dets, keep = dets.float().cpu().numpy(), keep.cpu().numpy()
+    out = []
+    for d, k in zip(np.asarray(dets), np.asarray(keep)):
+        rows = d[k]
+        if len(rows) == 0:
+            rows = np.zeros((1, 6), dtype=np.float32)
+        out.append(rows)
+    return out

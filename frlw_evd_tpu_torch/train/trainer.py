@@ -1,6 +1,7 @@
-"""Train and eval steps of the AED SimOTA recipe (counterpart of
-frlw_evd_tpu/train/trainer.py: TrainState, create_train_state,
-_compute_params, make_train_step, make_eval_step).
+"""Train and eval steps of the AED SimOTA recipe and the epoch loop
+(counterpart of frlw_evd_tpu/train/trainer.py: TrainState,
+create_train_state, _compute_params, make_train_step, make_eval_step,
+Trainer).
 
 Mixed precision as in the JAX package: the model holds f32 master weights
 and f32 BatchNorm statistics; with half_precision the step runs the
@@ -11,23 +12,40 @@ updates. (torch.autocast would keep f32 weights and cast per operation.)
 The head maps are cast to f32 before the loss.
 
 PyTorch runs eagerly, so there is no jit; a step updates its TrainState in
-place and returns the loss tensors without a host sync. The epoch loop
-(`Trainer`) waits for the dataset, loader and evaluator ports; so do
-`remat` and `patchify`.
+place and returns the loss tensors without a host sync. `Trainer` runs
+the experiment over the blob datasets: epochs of train steps fed two
+batches ahead from pinned host memory, per-epoch validation with COCO
+stats, the last and the best checkpoint, resume and test. `remat`,
+`patchify` and the yolov3 / red / memory families are not ported yet
+(ROADMAP A.11, A.13); the Trainer refuses them.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import math
+import os
+import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..models.detector import EventDetector, detector_loss, eval_decode
-from ..models.postprocess import postprocess_batch
+from ..data import Loader, PropheseeDataset, PropheseeTafDataset
+from ..evaluate import Evaluator, Recorder
+from ..models.detector import (EventDetector, build_detector, detector_loss,
+                               eval_decode)
+from ..models.postprocess import finalize_detections, postprocess_batch
 from ..models.stems import Dropout
 from ..pipeline import resolve_device
+from .checkpoints import (load_checkpoint, save_checkpoint,
+                          save_part_checkpoints)
+from .config import ExpConfig
+from .ema import ema_init, ema_update
+from .schedule import yolox_warm_cos_schedule
 
 
 class Tx(NamedTuple):
@@ -161,3 +179,309 @@ def make_eval_step(strides, max_detections: int = 200,
         return postprocess_batch(decoded, max_detections=max_detections)
 
     return eval_step
+
+
+class Trainer:
+    """End-to-end experiment runner (trainer.py:318-645, reference
+    basicExp) on `device` (default "cuda", which raises without a card).
+
+    The model is the AED of build_detector with cfg's stem, widths and
+    input channels, its weights from torch seed cfg.seed; a caller may
+    replace `self.model` before `build`. The dropout masks come from a
+    torch.Generator seeded cfg.seed + 1. Each `train_epoch` appends to
+    `history` its epoch, per-step losses, wall seconds (ending in the host
+    read of the losses) and the seconds the loop waited for the next
+    batch; `_train_loop` adds the epoch's validation under "val" (the
+    stats, the detection loop's and the COCO evaluation's seconds, also
+    left in `last_eval` by each `eval_epoch`)."""
+
+    def __init__(self, cfg: ExpConfig, *, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.family in ("yolov3", "red") or cfg.memory:
+            raise NotImplementedError(
+                f"the {cfg.memory or cfg.family} family is not ported yet "
+                f"(ROADMAP A.13)")
+        for flag in ("patchified", "remat"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"{flag}=True is not ported yet (ROADMAP A.11)")
+        self.model = build_detector(
+            cfg.num_classes, family=cfg.family, stem=cfg.stem, act=cfg.act,
+            strides=cfg.strides, in_channels=cfg.in_channels,
+            depth=cfg.depth, input_channels=cfg.input_channels,
+            generator=torch.Generator().manual_seed(cfg.seed), train=True)
+        self.exp_dir = os.path.join(
+            cfg.log_path, cfg.exp_name or cfg.resume_exp or cfg.exp_type)
+        self.ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        # -1, so the first validation always writes best_epoch
+        self.max_score = -1.0
+        self.epoch = 0
+        self.tb_writer = None
+        self.ema_params = None
+        self.history = []
+        self.last_eval = None
+
+    # -- data --------------------------------------------------------------
+    def _make_dataset(self, mode: str, augment: bool):
+        cfg = self.cfg
+        # labels are rescaled sensor → input inside the dataset: the
+        # override must reach it, or every box is mis-scaled silently
+        sensor = cfg.sensor_hw_override
+        if cfg.uses_taf_dataset:
+            return PropheseeTafDataset(
+                cfg.bbox_path, cfg.data_path, cfg.dataset, cfg.img_size,
+                cfg.img_size, cfg.infer_time, cfg.event_volume_bins, mode,
+                augment, cfg.clipping, seed=cfg.seed, sensor_hw=sensor)
+        return PropheseeDataset(
+            cfg.bbox_path, cfg.data_path, cfg.dataset, cfg.img_size,
+            cfg.img_size, cfg.event_volume_bins, cfg.infer_time, mode,
+            augment, cfg.clipping, seed=cfg.seed, sensor_hw=sensor)
+
+    def _loader(self, dataset, train: bool) -> Loader:
+        return Loader(dataset, self.cfg.batch_size, self.cfg.num_workers,
+                      shuffle=train, drop_last=train,
+                      seed=self.cfg.seed if train else 0,
+                      pin_memory=self.device.type == "cuda")
+
+    def create_datasets(self):
+        cfg = self.cfg
+        self.train_dataset = self._make_dataset("train", cfg.augmentation)
+        self.val_dataset = self._make_dataset("val", False)
+        self.train_loader = self._loader(self.train_dataset, True)
+        self.val_loader = self._loader(self.val_dataset, False)
+        self.object_classes = self.train_dataset.object_classes
+
+    def create_test_dataset(self):
+        self.val_dataset = self._make_dataset("test", False)
+        self.val_loader = self._loader(self.val_dataset, False)
+        self.object_classes = self.val_dataset.object_classes
+
+    # -- setup -------------------------------------------------------------
+    def build(self, iters_per_epoch: int):
+        """Adam on the yolox warm-cos schedule over cfg.max_epoch epochs of
+        `iters_per_epoch` steps, the train and eval steps, the dropout
+        generator and, with cfg.use_ema, the EMA parameters."""
+        cfg = self.cfg
+        iters = max(iters_per_epoch, 1)
+        self.schedule = yolox_warm_cos_schedule(
+            cfg.init_lr, cfg.min_lr_ratio, cfg.max_epoch * iters,
+            cfg.warmup_epochs * iters, cfg.warmup_lr)
+        self.state = create_train_state(self.model, adam(self.schedule),
+                                        device=self.device)
+        self.train_step = make_train_step(
+            cfg.strides, cfg.num_classes, cfg.center_radius,
+            cfg.half_precision, device=self.device)
+        self.eval_step = make_eval_step(
+            cfg.strides, half_precision=cfg.half_precision,
+            device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1)
+        self.ema_params = (ema_init(dict(self.model.named_parameters()))
+                           if cfg.use_ema else None)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        print(f"{n_params:,} total parameters.")
+
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """The model with the EMA parameters in place of the masters while
+        inside, when kept (JAX evaluates and saves the best state with
+        params=ema_params)."""
+        if self.ema_params is None:
+            yield
+            return
+        params = dict(self.model.named_parameters())
+        masters = {k: p.detach().clone() for k, p in params.items()}
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(self.ema_params[k])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(masters[k])
+
+    # -- loops -------------------------------------------------------------
+    def _prefetched_batches(self, lookahead: int = 2):
+        """(imgs, labels) on the device, their copies dispatched
+        `lookahead` batches ahead of the consuming step: the loader's
+        batches are page-locked on the card, so each copy is
+        non_blocking and the host goes on to the next batch."""
+        def put(item):
+            imgs, labels = item[0], item[1]
+            return (imgs.to(self.device, non_blocking=True),
+                    labels.to(self.device, non_blocking=True))
+
+        queue = collections.deque()
+        for item in self.train_loader:
+            queue.append(put(item))
+            if len(queue) >= lookahead:
+                yield queue.popleft()
+        while queue:
+            yield queue.popleft()
+
+    def train_epoch(self):
+        """One pass over the train loader; returns the mean of each loss
+        over its steps (one host read at the end) and prints it with the
+        lr."""
+        losses_acc = []
+        wait = 0.0
+        t_epoch = time.perf_counter()
+        batches = self._prefetched_batches()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            losses = self.train_step(self.state, batch[0], batch[1],
+                                     self.generator)
+            if self.ema_params is not None:
+                ema_update(self.ema_params,
+                           dict(self.model.named_parameters()),
+                           self.state.step)
+            losses_acc.append(losses)
+        if not losses_acc:
+            return {}
+        table = {k: torch.stack([lo[k] for lo in losses_acc]).double().cpu()
+                 .numpy() for k in losses_acc[0]}
+        self.history.append({
+            "epoch": self.epoch,
+            "losses": [{k: float(v[i]) for k, v in table.items()}
+                       for i in range(len(losses_acc))],
+            "steps": len(losses_acc),
+            "wall_s": time.perf_counter() - t_epoch,
+            "loader_wait_s": wait})
+        mean = {k: float(np.mean(v)) for k, v in table.items()}
+        lr = float(self.schedule(self.state.step - 1))
+        print(f"Epoch {self.epoch}: " +
+              ", ".join(f"{k}={v:.4f}" for k, v in mean.items()) +
+              f", lr={lr:.6f}")
+        return mean
+
+    def eval_epoch(self, evaluator: Evaluator):
+        """Detections of the val loader (the EMA parameters when kept) into
+        `evaluator`; returns its six COCO stats. Each batch's infer_time is
+        read after a synchronize on the card. The last batch may be
+        smaller: cudnn.benchmark is off in the port, so no autotuning
+        reruns for it."""
+        cfg = self.cfg
+        seq_state = None
+        seq_stream = None
+        if cfg.seq_nms:
+            from ..models.seq_nms import SeqNMSState
+
+            seq_state = SeqNMSState()
+        t_loop = time.perf_counter()
+        with self._eval_weights():
+            for imgs, labels, names, tss in self.val_loader:
+                start = time.time()
+                dets, keep = self.eval_step(self.state, imgs)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                infer_time = time.time() - start
+                outputs = finalize_detections(dets, keep)
+                if seq_state is not None:
+                    # link detections across consecutive windows of each
+                    # stream (yolo_head.py:283-300; val samples arrive in
+                    # stream order)
+                    linked = []
+                    for out, name in zip(outputs, names):
+                        if name != seq_stream:
+                            seq_state.clean()
+                            seq_stream = name
+                        linked.append(seq_state.link(out))
+                    outputs = linked
+                evaluator.add_result(outputs, list(tss), labels.numpy(),
+                                     names, infer_time, 0.0)
+        t_coco = time.perf_counter()
+        stats = evaluator.evaluate()
+        done = time.perf_counter()
+        self.last_eval = {"stats": stats, "loop_s": t_coco - t_loop,
+                          "coco_s": done - t_coco}
+        return stats
+
+    def make_evaluator(self, recorder=None) -> Evaluator:
+        cfg = self.cfg
+        return Evaluator(self.object_classes, cfg.batch_size, cfg.infer_time,
+                         cfg.sensor_hw[1], cfg.sensor_hw[0],
+                         cfg.img_size[1], cfg.img_size[0], cfg.dataset,
+                         recorder)
+
+    def _make_tb_writer(self):
+        """TensorBoard scalars per epoch (Training/Loss, Validation/Map —
+        reference core/exp.py:215,313,328); None if tensorboard is absent."""
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            return SummaryWriter(os.path.join(self.exp_dir, "tensorboard"))
+        except Exception:
+            return None
+
+    def train(self):
+        cfg = self.cfg
+        self.create_datasets()
+        self.build(len(self.train_loader))
+        if cfg.resume_exp:
+            path = os.path.join(cfg.log_path, cfg.resume_exp, "checkpoints",
+                                "last_epoch")
+            self.state, self.epoch, self.max_score = load_checkpoint(
+                path, self.state, self.ema_params)
+        self.tb_writer = self._make_tb_writer()
+        try:
+            self._train_loop()
+        finally:
+            if self.tb_writer is not None:
+                self.tb_writer.close()
+
+    def _train_loop(self):
+        cfg = self.cfg
+        while self.epoch < cfg.max_epoch_to_stop:
+            mean = self.train_epoch()
+            if self.tb_writer is not None and mean:
+                self.tb_writer.add_scalar("Training/Loss",
+                                          mean["total_loss"], self.epoch)
+            save_checkpoint(os.path.join(self.ckpt_dir, "last_epoch"),
+                            self.state, self.epoch, self.max_score,
+                            self.ema_params)
+            save_part_checkpoints(os.path.join(self.ckpt_dir, "last_epoch"),
+                                  self.state)
+            # reduce_evaluate: validate only every ~10% of the run and in
+            # the final 40% (reference core/exp.py:249)
+            do_eval = (not cfg.reduce_evaluate) or (
+                self.epoch > 0
+                and (self.epoch % math.ceil(cfg.max_epoch_to_stop / 10) == 0
+                     or self.epoch >= cfg.max_epoch_to_stop / 5 * 3))
+            if do_eval:
+                result = self.eval_epoch(self.make_evaluator())
+                if self.history and self.history[-1]["epoch"] == self.epoch:
+                    self.history[-1]["val"] = self.last_eval
+                if self.tb_writer is not None:
+                    self.tb_writer.add_scalar("Validation/Map", result[0],
+                                              self.epoch)
+                if result[0] > self.max_score:
+                    self.max_score = result[0]
+                    with self._eval_weights():
+                        save_checkpoint(
+                            os.path.join(self.ckpt_dir, "best_epoch"),
+                            self.state, self.epoch, self.max_score)
+                print(f"Epoch {self.epoch}: best score {self.max_score}")
+            self.epoch += 1
+
+    def test(self):
+        """The six COCO stats of the test split under the best_epoch
+        checkpoint of cfg.resume_exp (or cfg.exp_type). That checkpoint
+        holds the EMA parameters where they were kept, so they are not
+        swapped in again (the JAX Trainer would evaluate fresh ones)."""
+        cfg = self.cfg
+        self.create_test_dataset()
+        self.build(1)
+        path = os.path.join(cfg.log_path, cfg.resume_exp or cfg.exp_type,
+                            "checkpoints", "best_epoch")
+        self.state, self.epoch, self.max_score = load_checkpoint(
+            path, self.state)
+        self.ema_params = None
+        recorder = Recorder(self.exp_dir) if cfg.record else None
+        return self.eval_epoch(self.make_evaluator(recorder))
