@@ -164,7 +164,28 @@ Phases (any failure exits non-zero; no phase catches and continues):
  30. card against CPU, small, f32 with TF32 off: one Trainer epoch of a
      narrow taf_bfm AED on a 120x152 tree (losses rtol 2e-4, BatchNorm
      statistics 1e-5), its eval_epoch (detections by DET_GATES, COCO
-     stats within 1e-3) and 20 windows of stream_infer at 60x76.
+     stats within 1e-3) and 20 windows of stream_infer at 60x76;
+ 31. tools.generate_eventvolume, generate_eventcountimage and
+     generate_surfaceofactiveevents at full GEN1 geometry over phase 28's
+     tree, on the card every split, on the CPU the first val stream: that
+     stream's blobs card against CPU and each against the oracle's
+     (oracle_generator_blobs), share of bytes off by more than one below
+     1e-3; ms an encode on each device; no kernel launched;
+ 32. Trainer.train() at batch 64, full GEN1 width, one epoch with
+     validation: `basic` (aed, focus, 10 channels) on phase 31's EV blobs
+     and `yolox_taf_bfm` (CSPDarknet, bfm) on phase 28's TAF blobs: at
+     least 3 steps, every loss and COCO stat finite, best_epoch written,
+     no kernel launched; ms/step and the loader-wait share;
+ 33. gen1_train at batch 64 four ways (plain, remat, p64, both): one f32
+     step (TF32 off) from the same weights, batch and dropout seed, remat
+     against plain and remat_p64 against p64 with dropout on, p64 against
+     plain with dropout 0: losses within rtol 2e-4, BatchNorm statistics
+     within 1e-5; then each way through train.run_train (bf16, dropout
+     on): ms/step, peak memory, MFU; no kernel launched;
+ 34. a yolox_taf_bfm model (CSPDarknet, bfm stem, 2 classes, bf16) served
+     through make_pipeline_kernel at GEN1, B = 128, E = 16384, as phase 4
+     (B1 and B2 on every window; windows/s, encode_transform and detect
+     ms), then phase 5's card-against-CPU check with a small yolox model.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -185,6 +206,8 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
 
 import numpy as np
@@ -451,12 +474,14 @@ def check_update(enc, ev_sets, dev, rate):
                 bound_by="bytes")
 
 
-def run_main_path(pipeline, counters, windows, dev, card):
-    """Phase 4: the GEN1 serving path at full width; returns the launch
-    counts of its run."""
+def run_main_path(pipeline, counters, windows, dev, card, model=None,
+                  label="main path"):
+    """Phase 4: the GEN1 serving path at full width (phase 34: with the
+    yolox `model`); returns the launch counts of its run."""
     from frlw_evd_tpu_torch.models import build_detector
 
-    model = gen1_model(build_detector, pipeline)
+    if model is None:
+        model = gen1_model(build_detector, pipeline)
     run = pipeline.make_pipeline_kernel(model, GEN1_SENSOR, GEN1_INPUT,
                                         device=dev, dtype=torch.bfloat16)
     state = pipeline.new_state(B, GEN1_SENSOR, device=dev)
@@ -469,17 +494,17 @@ def run_main_path(pipeline, counters, windows, dev, card):
         torch.cuda.synchronize()
         if not (torch.isfinite(state).all() and torch.isfinite(vol).all()
                 and torch.isfinite(dets).all()):
-            raise SystemExit(f"main path window {i}: non-finite output")
+            raise SystemExit(f"{label} window {i}: non-finite output")
         if vol.shape != (B, *GEN1_INPUT, 2 * K) or dets.shape != (B, 100, 6):
-            raise SystemExit(f"main path window {i}: shapes {vol.shape}, "
+            raise SystemExit(f"{label} window {i}: shapes {vol.shape}, "
                              f"{dets.shape}")
         n_valid_rows = int((dets[..., 5] > 0).sum().item())
-        log(f"main path window {i}: kept {int(keep.sum().item())} of "
+        log(f"{label} window {i}: kept {int(keep.sum().item())} of "
             f"{n_valid_rows} boxes past conf 0.3 over {B} streams")
     launches = {k: fn.launches for k, fn in counters.items()}
     if min(launches[k] for k in ("scatter_cnt_tsum",
                                  "taf_update_leaky")) < len(windows):
-        raise SystemExit(f"main path did not go through the kernels: "
+        raise SystemExit(f"{label} did not go through the kernels: "
                          f"{launches}")
 
     ev, nv = windows[0]
@@ -494,24 +519,27 @@ def run_main_path(pipeline, counters, windows, dev, card):
         state, _ = run(state, ev, nv)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n
-    log(f"main path on {card}: encode_transform {enc_ms:.3f} ms, detect "
+    log(f"{label} on {card}: encode_transform {enc_ms:.3f} ms, detect "
         f"{det_ms:.3f} ms per {B}-stream window batch; run_step "
         f"{step_s * 1e3:.3f} ms = {B / step_s:.1f} windows/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 
 
-def check_small_against_cpu(pipeline, dev):
-    """Phase 5: the slice on the card vs on the CPU, 60x72 → 64x96, f32."""
+def check_small_against_cpu(pipeline, dev, family="aed"):
+    """Phase 5: the slice on the card vs on the CPU, 60x72 → 64x96, f32
+    (phase 34: a yolox model with its head 32 wide)."""
     from frlw_evd_tpu_torch.models import build_detector
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     sensor, inp = (60, 72), (64, 96)
+    widths = (dict(in_channels=(32, 32, 32), stem_out_channels=16)
+              if family == "aed" else {})
     runs, states = {}, {}
     for d in ("cpu", dev):
-        model = build_detector(2, stem="bfm", in_channels=(32, 32, 32),
-                               stem_out_channels=16, head_width=32)
+        model = build_detector(2, family=family, stem="bfm", head_width=32,
+                               **widths)
         pipeline.spread_random_weights_(model,
                                         torch.Generator().manual_seed(1))
         runs[d] = pipeline.make_pipeline_kernel(model, sensor, inp, device=d,
@@ -532,11 +560,13 @@ def check_small_against_cpu(pipeline, dev):
         same_keep = torch.equal(g_keep.cpu(), c_keep)
         if (st_err > 1e-2 or vol_err > 2e-2 or not same_keep
                 or not torch.isfinite(g_dets).all()):
-            raise SystemExit(f"small input window {i}: state err {st_err}, "
+            raise SystemExit(f"small {family} window {i}: state err "
+                             f"{st_err}, "
                              f"vol err {vol_err}, keep masks equal: "
                              f"{same_keep}, dets finite: "
                              f"{bool(torch.isfinite(g_dets).all())}")
-        log(f"small input window {i}: card vs CPU state err {st_err:.2e}, "
+        log(f"small {family} window {i}: card vs CPU state err "
+            f"{st_err:.2e}, "
             f"vol err {vol_err:.2e}, keep masks equal "
             f"({int(c_keep.sum())} kept)")
 
@@ -1229,6 +1259,7 @@ def run_train_config(train, build_detector, counters, config, dev, card,
                 tflop_per_step=rep["flops_per_step"] / 1e12, mfu=mfu)
 
 
+LAMDAS = (0.00001, 0.0000025, 0.000001)    # the SAE generator's
 SMALL_TRAIN_GATES = {"losses": 2e-4, "statistics": 1e-5, "gradients": 1e-6,
                      "parameters": 1e-6}
 STATS = ("running_mean", "running_var")
@@ -1260,8 +1291,8 @@ def small_sgd_step(train, build_detector, device, dtype, imgs, labels):
                                          device=device)
     else:
         model.to(device, dtype)
-        state = train.TrainState(0, model,
-                                 train.sgd(1e-2).make(model.parameters()))
+        state = train.TrainState(
+            0, model, train.sgd(1e-2).make(model.named_parameters()))
     step = train.make_train_step((8, 16, 32), 2, 2.5, device=device)
     losses = step(state, torch.from_numpy(imgs).to(dtype),
                   torch.from_numpy(labels), torch.Generator(device=device))
@@ -2287,6 +2318,80 @@ def build_gen1_tree(root):
         streams=tuple(f"val{i}" for i in range(VAL_STREAMS)), **GEN1_TREE)
 
 
+GENERATORS = ("eventvolume", "eventcountimage", "surfaceofactiveevents")
+
+
+def oracle_generator_blobs(tool: str, event_path: str, bbox_path: str,
+                           sensor, target):
+    """{blob file relative to the tool's target directory: uint8 blob}
+    of one stream, as the port's generate_<tool> windows it (EV: the
+    trailing 250 / 500 / 1000 ms; ECI: the last 5e4 / 1e5 / 2e5 events;
+    SAE: the 5 s before the first annotation time, then the events since
+    the last one, the memory carried), encoded by encode/oracle.py in
+    numpy from the whole recording (dat_codec), the windows cut by
+    searchsorted on its timestamps. GEN1 geometry: encoded at `sensor`,
+    resized to `target`."""
+    from frlw_evd_tpu_torch.encode import oracle
+    from frlw_evd_tpu_torch.events.dat_codec import load_td_data
+    from frlw_evd_tpu_torch.events.npy_codec import load_bboxes
+
+    raw = load_td_data(event_path)
+    t = raw["ts"].astype(np.int64)
+    xytp = np.stack([raw["x"], raw["y"], t, raw["p"]], -1).astype(np.float64)
+    name = Path(event_path).name[:-len("_td.dat")]
+    split = Path(event_path).parent.name
+    memory, prev_end, prev_ts = None, 0, -1e8
+    out = {}
+    for ts in np.unique(load_bboxes(bbox_path)["t"]):
+        end = int(np.searchsorted(t, ts))
+        blob = f"{split}/{name}_{ts}.npy"
+        if tool == "eventvolume":
+            for tw in (250000, 500000, 1000000):
+                ev = xytp[end - int(np.sum(t[:end] > ts - tw)):end].copy()
+                ev[:, 2] = (ev[:, 2] - (ts - tw)) / tw
+                vol = oracle.event_volume(ev.astype(np.float32), sensor, 5)
+                out[f"EventVolume{tw}/{blob}"] = oracle.to_uint8(
+                    oracle.nearest_resize(vol, target))
+        elif tool == "eventcountimage":
+            for n in (50000, 100000, 200000):
+                vol = oracle.count_image(
+                    xytp[max(0, end - n):end].astype(np.float32), sensor)
+                out[f"EventCountImage{n}/{blob}"] = oracle.to_uint8(
+                    oracle.nearest_resize(vol, target), clip=False)
+        else:
+            start = ts - 5_000_000
+            begin = prev_end if start <= prev_ts else (
+                int(np.searchsorted(t, start)) if start >= 0 else 0)
+            ecd, memory = oracle.sae(xytp[begin:end].astype(np.float32),
+                                     sensor, LAMDAS, memory, float(ts))
+            ecd = oracle.to_uint8(oracle.nearest_resize(ecd, target),
+                                  clip=False)
+            for j, lam in enumerate(LAMDAS):
+                out[f"SurfaceOfActiveEvents{lam}/{blob}"] = \
+                    ecd[2 * j:2 * j + 2]
+            prev_end, prev_ts = end, ts
+    return out
+
+
+def generator_off_share(a_dir, b_blobs) -> tuple[float, int]:
+    """The largest share of bytes differing by more than one between the
+    blobs of `b_blobs` ({relative path: uint8 array}, or a directory whose
+    .npy files are compared) and the same files under a_dir."""
+    if not isinstance(b_blobs, dict):
+        b_blobs = {str(p.relative_to(b_blobs)): np.fromfile(p, np.uint8)
+                   for p in sorted(Path(b_blobs).rglob("*.npy"))}
+    worst = 0.0
+    for rel, b in b_blobs.items():
+        a = np.fromfile(Path(a_dir) / rel, np.uint8).astype(np.int16)
+        b = np.asarray(b, np.uint8).reshape(-1).astype(np.int16)
+        if a.shape != b.shape:
+            raise SystemExit(f"{rel}: {a.shape} against {b.shape}")
+        worst = max(worst, float((np.abs(a - b) > 1).mean()))
+    if not b_blobs:
+        raise SystemExit(f"no blobs to compare with {a_dir}")
+    return worst, len(b_blobs)
+
+
 def blob_off_share(a_dir, b_dir, split):
     """The largest share of bytes differing by more than one between the
     TAF blobs of `split` under two trees, over every blob of a_dir."""
@@ -2428,7 +2533,8 @@ def run_data_path(counters, dev, card, synthetic_train):
     if diff > 1e-6:
         raise SystemExit(f"cli.test stats {cli_stats} against the "
                          f"in-process {best['val']['stats']}")
-    return dict(tree=tree, checkpoint=str(ckpts / "best_epoch"))
+    return dict(tree=tree, checkpoint=str(ckpts / "best_epoch"),
+                taf_dir=out["cuda"] + "/taf")
 
 
 def b6_at_batch_one(enc, windows, sensor, rate):
@@ -2657,6 +2763,290 @@ def check_data_path_against_cpu(pipeline, build_detector, dev):
          torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
+def _val0_tree(tree) -> tuple[str, str]:
+    """(events, labels) directories holding only the val split's first
+    stream, as links into `tree`: the CPU generators' input."""
+    root = WORK / "val0"
+    for key, name in (("events", "val0_td.dat"), ("labels", "val0_bbox.npy")):
+        (root / key / "val").mkdir(parents=True, exist_ok=True)
+        (root / key / "val" / name).symlink_to(
+            Path(tree[key]) / "val" / name)
+    return str(root / "events"), str(root / "labels")
+
+
+def run_generators(data, counters, dev, card):
+    """Phase 31: tools.generate_eventvolume, generate_eventcountimage and
+    generate_surfaceofactiveevents at full GEN1 geometry (240x304 →
+    256x320) over phase 28's tree: on the card every split, on the CPU the
+    first val stream. That stream's blobs card against CPU, and each
+    against oracle_generator_blobs (encode/oracle.py, computed in spawned
+    processes meanwhile), at BLOB_GATE; no kernel launched. Prints the ms
+    an encode takes (host copy, encode, read-back; host clock) on each
+    device. Returns the card's EV (250 ms) blob directory for phase 32."""
+    from frlw_evd_tpu_torch.tools import (generate_eventcountimage,
+                                          generate_eventvolume,
+                                          generate_surfaceofactiveevents)
+
+    tree = data["tree"]
+    mods = {"eventvolume": generate_eventvolume,
+            "eventcountimage": generate_eventcountimage,
+            "surfaceofactiveevents": generate_surfaceofactiveevents}
+    val0 = _val0_tree(tree)
+    n_times = len(GEN1_TREE["ann_times"])
+    # the numpy oracle (about 20 s for the EV blobs of one GEN1 stream)
+    # runs in processes of its own while the generators run here
+    with ProcessPoolExecutor(len(GENERATORS),
+                             mp_context=get_context("spawn")) as pool:
+        t0 = time.perf_counter()
+        oracles = {tool: pool.submit(
+            oracle_generator_blobs, tool,
+            str(Path(tree["events"]) / "val" / "val0_td.dat"),
+            str(Path(tree["labels"]) / "val" / "val0_bbox.npy"),
+            GEN1_SENSOR, GEN1_INPUT) for tool in GENERATORS}
+        _run_generators(mods, tree, val0, n_times, oracles, counters, dev,
+                        card)
+        log(f"the oracle's val0 blobs of the three tools: "
+            f"{time.perf_counter() - t0:.1f} s from their start, in "
+            f"{len(GENERATORS)} processes")
+    return str(WORK / "eventvolume_cuda" / "EventVolume250000")
+
+
+def _run_generators(mods, tree, val0, n_times, oracles, counters, dev,
+                    card):
+    for fn in counters.values():
+        fn.launches = 0
+    for tool in GENERATORS:
+        gen = getattr(mods[tool], f"generate_{tool}")
+        dirs = {d: str(WORK / f"{tool}_{d}") for d in ("cuda", "cpu")}
+        t0 = time.perf_counter()
+        stats = {"cuda": gen(tree["events"], tree["labels"], dirs["cuda"],
+                             "gen1", dev)}
+        t1 = time.perf_counter()
+        stats["cpu"] = gen(*val0, dirs["cpu"], "gen1", "cpu")
+        t2 = time.perf_counter()
+        encodes = 1 if tool == "surfaceofactiveevents" else 3
+        want = (TRAIN_STREAMS + VAL_STREAMS) * n_times * encodes
+        if (stats["cuda"]["blobs"], stats["cpu"]["blobs"]) != (
+                want, n_times * encodes):
+            raise SystemExit(f"generate_{tool} encoded {stats}")
+        oracle = oracles[tool].result()
+        for label, (a, b) in {"card vs CPU": (dirs["cuda"], dirs["cpu"]),
+                              "card vs oracle": (dirs["cuda"], oracle),
+                              "CPU vs oracle": (dirs["cpu"], oracle)}.items():
+            worst, n = generator_off_share(a, b)
+            log(f"generate_{tool} val0 blobs, {label}: largest share off by "
+                f"more than one {worst:.2e} over {n} blobs (gate "
+                f"{BLOB_GATE})")
+            if worst >= BLOB_GATE or n != 3 * n_times:
+                raise SystemExit(f"generate_{tool} {label}: {worst} over "
+                                 f"{n} blobs")
+        ms = {d: st["encode_s"] / st["blobs"] * 1e3
+              for d, st in stats.items()}
+        log(f"generate_{tool} on {card}: {ms['cuda']:.2f} ms an encode over "
+            f"{stats['cuda']['blobs']} ({t1 - t0:.1f} s in all); the CPU "
+            f"{ms['cpu']:.2f} over {stats['cpu']['blobs']} ({t2 - t1:.1f} "
+            f"s) (host copy up, encode, host read; host clock)")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise SystemExit(f"the generators launched a kernel: {launches}")
+
+
+def run_trainer_families(train, data, ev_dir, counters, dev, card,
+                         synthetic_train):
+    """Phase 32: Trainer.train() at batch 64, full GEN1 width, one epoch
+    with validation: `basic` (aed, focus stem, 10 channels) on phase 31's
+    EV blobs, then `yolox_taf_bfm` (CSPDarknet, bfm stem) on phase 28's
+    TAF blobs. Each: at least 3 steps, every loss and COCO stat finite,
+    best_epoch written, no kernel launched. Prints ms/step and the share
+    of it the loop waited for the loader."""
+    for exp_type, data_path, bins in (("basic", ev_dir, 5),
+                                      ("yolox_taf_bfm", data["taf_dir"], K)):
+        cfg = train.make_config(
+            exp_type, dataset="gen1", batch_size=TREE_BATCH,
+            data_path=data_path, bbox_path=data["tree"]["labels"],
+            log_path=str(WORK / "log"), exp_name=f"gen1_{exp_type}",
+            event_volume_bins=bins, max_epoch_to_stop=1,
+            reduce_evaluate=False)
+        for fn in counters.values():
+            fn.launches = 0
+        trainer = train.Trainer(cfg, device=dev)
+        trainer.train()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if any(launches.values()):
+            raise SystemExit(f"{exp_type}: the Trainer launched a kernel: "
+                             f"{launches}")
+        hist = trainer.history
+        if len(hist) != 1 or hist[0]["steps"] < 3 or "val" not in hist[0]:
+            raise SystemExit(f"{exp_type}: Trainer.train ran {hist}")
+        h = hist[0]
+        losses = [v for lo in h["losses"] for v in lo.values()]
+        if not (all(np.isfinite(losses))
+                and all(np.isfinite(h["val"]["stats"]))):
+            raise SystemExit(f"{exp_type}: non-finite loss or COCO stat: "
+                             f"{h}")
+        if not (Path(trainer.ckpt_dir) / "best_epoch").exists():
+            raise SystemExit(f"{exp_type}: Trainer.train wrote no best_epoch")
+        log(f"{exp_type} ({type(trainer.model.backbone).__name__}, "
+            f"{cfg.input_channels} channels) on {card}: {h['steps']} steps "
+            f"at batch {TREE_BATCH}, {h['wall_s'] / h['steps'] * 1e3:.1f} "
+            f"ms/step, the loop waiting for the loader "
+            f"{h['loader_wait_s'] / h['wall_s']:.1%} of it; total_loss by "
+            f"step " + ", ".join(f"{lo['total_loss']:.4f}"
+                                 for lo in h["losses"])
+            + f"; validation {h['val']['loop_s']:.2f} s detecting, COCO "
+            f"stats " + ", ".join(f"{v:.4f}" for v in h["val"]["stats"])
+            + f"; phase 17's gen1_train {synthetic_train['ms_per_step']:.1f} "
+            f"ms/step")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+FOUR_WAYS = {"plain": {}, "remat": dict(remat=True), "p64": dict(p64=True),
+             "remat_p64": dict(remat=True, p64=True)}
+# four_ways_agree's pairs: (way, its counterpart, the stem's dropout)
+AGREE_PAIRS = (("remat", "plain", 0.1), ("remat_dots", "plain", 0.1),
+               ("remat_p64", "p64", 0.1), ("p64", "plain", 0.0))
+
+
+def four_ways_agree(train, build_detector, dev):
+    """Phase 33's check: one f32 step (TF32 off) of gen1_train at batch 64
+    from the same weights, batch and dropout seed, each way against its
+    counterpart (AGREE_PAIRS): remat, full and with the "dots" policy,
+    against plain and remat_p64 against p64 with the stem's dropout at 0.1
+    (the recompute must replay its masks), p64 against plain with dropout
+    0 (the patched stem draws its masks in another layout). Losses within
+    rtol 2e-4, BatchNorm running statistics within 1e-5
+    (SMALL_TRAIN_GATES)."""
+    cfg = train.TRAIN_CONFIGS["gen1_train"]
+    vol, labels = train.synthetic_batches(np.random.default_rng(0), 1,
+                                          cfg["batch"], cfg["input_hw"],
+                                          cfg["num_classes"])[0]
+    vol, labels = torch.from_numpy(vol).to(dev), torch.from_numpy(labels)
+    base = build_detector(cfg["num_classes"], stem="bfm", train=True,
+                          generator=torch.Generator().manual_seed(0))
+
+    ways = {**FOUR_WAYS, "remat_dots": dict(remat=True,
+                                            remat_policy="dots")}
+
+    def one_step(way, dropout):
+        kw = ways[way]
+        p64 = kw.get("p64", False)
+        model = build_detector(cfg["num_classes"],
+                               stem="bfm_p64" if p64 else "bfm", train=True,
+                               dropout_rate=dropout)
+        model.load_state_dict(base.state_dict())
+        state = train.create_train_state(model, train.adam(1e-3),
+                                         device=dev)
+        step = train.make_train_step(
+            (8, 16, 32), cfg["num_classes"], 2.5, device=dev, patchify=p64,
+            remat=kw.get("remat", False),
+            remat_policy=kw.get("remat_policy"))
+        losses = step(state, vol, labels,
+                      torch.Generator(device=dev).manual_seed(1))
+        out = ({k: float(v) for k, v in losses.items()},
+               {k: v.cpu() for k, v in model.state_dict().items()
+                if k.endswith(STATS)})
+        del state, model
+        torch.cuda.empty_cache()
+        return out
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        refs = {}
+        for way, ref, dropout in AGREE_PAIRS:
+            if (ref, dropout) not in refs:
+                refs[ref, dropout] = one_step(ref, dropout)
+            (got, got_sd), (want, want_sd) = (one_step(way, dropout),
+                                              refs[ref, dropout])
+            loss_err = max(abs(got[k] / want[k] - 1) for k in want
+                           if want[k] != 0)
+            stat_err = max((got_sd[k] - v).abs().max().item()
+                           for k, v in want_sd.items())
+            log(f"gen1_train f32 first step, {way} against {ref} (dropout "
+                f"{dropout}): losses rel err {loss_err:.2e}, BatchNorm "
+                f"statistics err {stat_err:.2e}; total_loss "
+                f"{got['total_loss']:.6f} / {want['total_loss']:.6f}")
+            if (loss_err > SMALL_TRAIN_GATES["losses"]
+                    or stat_err > SMALL_TRAIN_GATES["statistics"]):
+                raise SystemExit(f"{way} against {ref}: losses {got} / "
+                                 f"{want}, statistics err {stat_err}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def run_train_four_ways(train, build_detector, counters, dev, card,
+                        card_name):
+    """Phase 33: gen1_train at batch 64, full width, on device-resident
+    batches, four ways: plain, remat (full), p64 (patchify) and both.
+    First four_ways_agree; then each way through train.run_train (bf16
+    over f32 masters, dropout on): TRAIN_WARMUP + TRAIN_STEPS steps, every
+    loss finite, no kernel launched; ms/step, peak memory and MFU, the
+    FLOPs of each way's model (the plain way's for remat, p64's for
+    remat_p64: recomputed FLOPs are not the model's)."""
+    four_ways_agree(train, build_detector, dev)
+    reps = {}
+    for way, kw in FOUR_WAYS.items():
+        for fn in counters.values():
+            fn.launches = 0
+        rep = train.run_train("gen1_train", steps=TRAIN_STEPS,
+                              warmup=TRAIN_WARMUP, device=dev, **kw)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if any(launches.values()):
+            raise SystemExit(f"gen1_train {way} launched a kernel: "
+                             f"{launches}")
+        if not all(np.isfinite(v) for lo in rep["losses"]
+                   for v in lo.values()):
+            raise SystemExit(f"gen1_train {way}: a non-finite loss")
+        plain_way = {"remat": "plain", "remat_p64": "p64"}.get(way)
+        model_flops = (reps[plain_way]["flops_per_step"] if plain_way
+                       else rep["flops_per_step"])
+        mfu = model_flops / (rep["ms_per_step"] / 1e3) / bf16_tensor_flops(
+            card_name)
+        reps[way] = dict(ms_per_step=rep["ms_per_step"],
+                         peak_gib=rep["peak_bytes"] / 2**30, mfu=mfu,
+                         flops_per_step=rep["flops_per_step"])
+        log(f"gen1_train {way} on {card}: {rep['ms_per_step']:.2f} ms/step "
+            f"at batch {rep['batch']}, peak memory "
+            f"{rep['peak_bytes'] / 2**30:.2f} GiB, "
+            f"{rep['flops_per_step'] / 1e12:.3f} TFLOP/step counted, MFU "
+            f"{mfu:.2%} (the model's {model_flops / 1e12:.3f} TFLOP/step)")
+        del rep
+        torch.cuda.empty_cache()
+    for way in ("remat", "p64", "remat_p64"):
+        log(f"gen1_train {way} against plain: ms/step x"
+            f"{reps[way]['ms_per_step'] / reps['plain']['ms_per_step']:.3f}"
+            f", peak memory x"
+            f"{reps[way]['peak_gib'] / reps['plain']['peak_gib']:.3f}")
+    return reps
+
+
+def yolox_gen1_model(build_detector, pipeline):
+    """Phase 34's yolox_taf_bfm model (CSPDarknet, bfm stem, 2 classes)
+    with seeded random weights spread as phase 4's, f32 on the CPU."""
+    model = build_detector(2, family="yolox", stem="bfm",
+                           generator=torch.Generator().manual_seed(0))
+    return pipeline.spread_random_weights_(model,
+                                           torch.Generator().manual_seed(1))
+
+
+def run_yolox_path(pipeline, build_detector, counters, windows, dev, card):
+    """Phase 34: the yolox_taf_bfm model served through
+    make_pipeline_kernel at GEN1, B = 128, E = 16384, bf16, as phase 4
+    (B1 and B2 on every window), then phase 5's card-against-CPU check
+    with a small yolox model. Returns the launch counts of its run."""
+    launches = run_main_path(pipeline, counters, windows, dev, card,
+                             model=yolox_gen1_model(build_detector, pipeline),
+                             label="yolox path")
+    check_small_against_cpu(pipeline, dev, family="yolox")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2800,7 +3190,22 @@ def main() -> int:
     rows["scatter_cnt_tsum_pallas_sorted"]["stream_infer_b1"] = b6_b1
     phase(30, "data path small, card vs CPU", check_data_path_against_cpu,
           pipeline, build_detector, dev)
+    ev_dir = phase(31, "EV, ECI and SAE generators", run_generators, data,
+                   counters, dev, card)
+    phase(32, "Trainer: basic on EV blobs, yolox_taf_bfm",
+          run_trainer_families, train, data, ev_dir, counters, dev, card,
+          synthetic_train["gen1_train"])
     shutil.rmtree(WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase(33, "gen1_train four ways", run_train_four_ways, train,
+          build_detector, counters, dev, card, name)
+    torch.cuda.empty_cache()
+    windows = device_windows(pipeline, np.random.default_rng(8), E,
+                             GEN1_SENSOR, dev)
+    by_path["gen1_yolox"] = phase(34, "yolox GEN1 path", run_yolox_path,
+                                  pipeline, build_detector, counters,
+                                  windows, dev, card)
+    del windows
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
     # or at all, the first being the one at the entry's shape whose
@@ -2809,7 +3214,8 @@ def main() -> int:
         "scatter_cnt_tsum": ("scatter_cnt_tsum",
                              ("gen1", "gen1_int8", "gen1_packed_pallas",
                               "gen4_packed_pallas", "gen4_folded_pallas",
-                              "gen1_taf_packed", "gen4_taf_packed"),
+                              "gen1_taf_packed", "gen4_taf_packed",
+                              "gen1_yolox"),
                              "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                              "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_p64": ("scatter_cnt_tsum",
@@ -2830,7 +3236,8 @@ def main() -> int:
         "taf_update_leaky": ("taf_update_leaky",
                              ("gen1", "gen1_int8", "gen4_folded_pallas",
                               "gen4_folded_sorted", "gen4_p64k4_raw",
-                              "gen4_p64k4_precise", "gen4_p64k4_sorted"),
+                              "gen4_p64k4_precise", "gen4_p64k4_sorted",
+                              "gen1_yolox"),
                              "frlw_evd_tpu_torch/csrc/taf_update.cu",
                              "frlw_evd_tpu/encode/pallas_update.py:37"),
         "taf_update_leaky_raw": ("taf_update_leaky_raw",

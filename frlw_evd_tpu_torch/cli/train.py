@@ -1,9 +1,9 @@
 """Training CLI (counterpart of the repository's train.py; reference
-train.py). The same flags, so recipes carry over, less the JAX-only
---rng_impl, --patchified and --remat, plus --device (default cuda, which
-raises without a card) and --img_size / --sensor_hw for a geometry other
-than the dataset's (ExpConfig's overrides; the synthetic trees of
-data/synthetic):
+train.py). The same flags, so recipes carry over, --patchified and
+--remat included, less the JAX-only --rng_impl, plus --device (default
+cuda, which raises without a card) and --img_size / --sensor_hw for a
+geometry other than the dataset's (ExpConfig's overrides; the synthetic
+trees of data/synthetic):
 
     python -m frlw_evd_tpu_torch.cli.train --exp_type taf_bfm \\
         --dataset gen1 --batch_size 64 --data_path <blob dir> \\
@@ -45,6 +45,16 @@ def parse_args(argv=None):
                         metavar=("H", "W"),
                         help="sensor size the labels are in, with "
                              "--img_size")
+    parser.add_argument("--patchified", action="store_true",
+                        help="train / eval through the quarter-resolution "
+                             "p64 stem (the same parameters and math)")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the forward in the backward, as "
+                             "the JAX trainer does; one checkpoint around "
+                             "the whole forward saves no peak memory here "
+                             "(gen1_train on an H100: 0.97x the peak at "
+                             "1.4-1.8x the ms/step, chip_smoke.py phase "
+                             "33)")
     return parser.parse_args(argv)
 
 
@@ -66,6 +76,8 @@ def main(argv=None):
         img_size_override=tuple(args.img_size) if args.img_size else None,
         sensor_hw_override=(tuple(args.sensor_hw) if args.sensor_hw
                             else None),
+        patchified=args.patchified,
+        remat=args.remat,
     )
     if args.max_epoch_to_stop is not None:
         cfg.max_epoch_to_stop = args.max_epoch_to_stop

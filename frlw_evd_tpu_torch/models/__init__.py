@@ -1,5 +1,6 @@
 """Detector zoo of the port (counterpart of frlw_evd_tpu/models): the AED
-family, with decode, NMS, seq-NMS and the SimOTA training loss."""
+and yolox families, with decode, NMS, seq-NMS and the SimOTA training
+loss."""
 
 from .detector import EventDetector, build_detector, detector_loss, eval_decode
 from .postprocess import (finalize_detections, postprocess_batch,

@@ -65,13 +65,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     (n - 1) / n, one rounding more than flax's. They are reduced in at
     least f32 whatever the input's dtype (torch centres the variance where
     flax takes E[x^2] - E[x]^2: equal to f32 rounding), and the running
-    statistics keep their dtype (f32 under bf16 compute).
+    statistics keep their dtype (f32 under bf16 compute). With
+    `update_stats` False a training forward normalises as always and
+    leaves the running statistics alone (the recompute of a
+    rematerialised forward, train.make_train_step with remat).
 
     Eval runs nn.BatchNorm2d's own path when the input has the running
     statistics' dtype (the serving models, cast whole). Under bf16 compute
     copies over f32 statistics (train.make_eval_step) it normalises in f32
     and returns the input's dtype, as flax does.
     """
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
@@ -86,6 +91,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         unbiased = torch.zeros_like(mean)
         y = F.batch_norm(x, mean, unbiased, self.weight.to(stat),
                          self.bias.to(stat), True, 1.0, self.eps)
+        if not self.update_stats:
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
@@ -120,16 +127,34 @@ class BaseConv(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
+class DWConv(nn.Module):
+    """Depthwise ksize conv → pointwise 1x1 conv, each a BaseConv
+    (blocks.py:224-238). The depthwise weight is (C, 1, k, k), torch's
+    layout of flax's (k, k, 1, C) kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int,
+                 stride: int = 1, act: str = "silu"):
+        super().__init__()
+        self.dconv = BaseConv(in_channels, in_channels, ksize, stride,
+                              groups=in_channels, act=act)
+        self.pconv = BaseConv(in_channels, out_channels, 1, act=act)
+
+    def forward(self, x):
+        return self.pconv(self.dconv(x))
+
+
 class Bottleneck(nn.Module):
-    """Standard bottleneck (blocks.py:241)."""
+    """Standard bottleneck (blocks.py:241); depthwise makes its 3x3 conv a
+    DWConv."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  shortcut: bool = True, expansion: float = 0.5,
-                 act: str = "silu"):
+                 depthwise: bool = False, act: str = "silu"):
         super().__init__()
         hidden = int(out_channels * expansion)
+        conv = DWConv if depthwise else BaseConv
         self.conv1 = BaseConv(in_channels, hidden, 1, act=act)
-        self.conv2 = BaseConv(hidden, out_channels, 3, act=act)
+        self.conv2 = conv(hidden, out_channels, 3, act=act)
         self.add = shortcut and in_channels == out_channels
 
     def forward(self, x):
@@ -173,7 +198,7 @@ class CSPLayer(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, n: int = 1,
                  shortcut: bool = True, expansion: float = 0.5,
-                 act: str = "silu"):
+                 depthwise: bool = False, act: str = "silu"):
         super().__init__()
         hidden = int(out_channels * expansion)
         self.n = n
@@ -181,7 +206,7 @@ class CSPLayer(nn.Module):
         self.conv2 = BaseConv(in_channels, hidden, 1, act=act)
         for i in range(n):
             self.add_module(f"m_{i}", Bottleneck(hidden, hidden, shortcut,
-                                                 1.0, act=act))
+                                                 1.0, depthwise, act=act))
         self.conv3 = BaseConv(2 * hidden, out_channels, 1, act=act)
 
     def forward(self, x):

@@ -1,6 +1,9 @@
-"""Darknet-21 backbone of the AED family (counterpart of
-frlw_evd_tpu/models/darknet.py): pluggable stem, four ResLayer groups and
-the SPP block in dark5. Returns the (dark3, dark4, dark5) pyramid, NCHW."""
+"""Darknet backbones (counterpart of frlw_evd_tpu/models/darknet.py).
+
+`Darknet` (depth 21) is the AED backbone: pluggable stem, four ResLayer
+groups and the SPP block in dark5. `CSPDarknet` is the standard YOLOX
+backbone of the yolox family. Both return the (dark3, dark4, dark5)
+pyramid, NCHW."""
 
 from __future__ import annotations
 
@@ -8,7 +11,7 @@ from typing import Sequence
 
 from torch import nn
 
-from .blocks import BaseConv, ResLayer, SPPBottleneck
+from .blocks import BaseConv, CSPLayer, DWConv, ResLayer, SPPBottleneck
 
 BLOCKS = (1, 2, 2, 1)     # ResLayers per group at depth 21 (darknet.py:18)
 
@@ -72,4 +75,42 @@ class Darknet(nn.Module):
         d3 = self.dark3(x)
         d4 = self.dark4(d3)
         d5 = self.dark5_spp(self.dark5_group(d4))
+        return [d3, d4, d5]
+
+
+class CSPDarknet(nn.Module):
+    """Standard YOLOX CSPDarknet (darknet.py:92-129): the yolox exp uses
+    dep_mul 0.33 and wid_mul 0.5, so channels 32 (stem), 64, 128, 256, 512
+    and CSP depths 1, 3, 3, 1. stem: a module class taking (in_channels,
+    out_channels, ksize, act); in_channels is its input's channels.
+    Submodules carry flax's names (dark2_conv, dark2_csp, ..., dark5_spp,
+    dark5_csp)."""
+
+    def __init__(self, stem, in_channels: int, dep_mul: float = 0.33,
+                 wid_mul: float = 0.5, depthwise: bool = False,
+                 act: str = "silu"):
+        super().__init__()
+        conv = DWConv if depthwise else BaseConv
+        base = int(wid_mul * 64)
+        depth = max(round(dep_mul * 3), 1)
+        self.stem = stem(in_channels, base, ksize=3, act=act)
+        cin = base
+        for name, mul, n in (("dark2", 2, depth), ("dark3", 4, depth * 3),
+                             ("dark4", 8, depth * 3)):
+            self.add_module(f"{name}_conv", conv(cin, base * mul, 3, 2,
+                                                 act=act))
+            self.add_module(f"{name}_csp", CSPLayer(
+                base * mul, base * mul, n=n, depthwise=depthwise, act=act))
+            cin = base * mul
+        self.dark5_conv = conv(cin, base * 16, 3, 2, act=act)
+        self.dark5_spp = SPPBottleneck(base * 16, base * 16, act=act)
+        self.dark5_csp = CSPLayer(base * 16, base * 16, n=depth,
+                                  shortcut=False, depthwise=depthwise,
+                                  act=act)
+
+    def forward(self, x):
+        x = self.dark2_csp(self.dark2_conv(self.stem(x)))
+        d3 = self.dark3_csp(self.dark3_conv(x))
+        d4 = self.dark4_csp(self.dark4_conv(d3))
+        d5 = self.dark5_csp(self.dark5_spp(self.dark5_conv(d4)))
         return [d3, d4, d5]

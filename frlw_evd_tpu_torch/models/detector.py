@@ -1,6 +1,6 @@
 """Composite detector: stem + backbone → neck → head (counterpart of
-frlw_evd_tpu/models/detector.py), for the AED family, with its training
-loss.
+frlw_evd_tpu/models/detector.py), for the AED and yolox families, with
+their training loss.
 
 `EventDetector` takes the JAX layout at its boundary and returns per-level
 NHWC head maps; inside it runs NCHW (channels_last in memory when the input
@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from .blocks import Focus, PatchFusedConv2d
-from .darknet import Darknet
+from .darknet import CSPDarknet, Darknet
 from .heads import (YOLOXHead, compute_losses, decode_outputs,
                     flatten_level_outputs, level_grids)
 from .pafpn import YOLOPAFPN
@@ -92,24 +92,34 @@ def build_detector(num_classes: int, *, family: str = "aed",
                    generator: torch.Generator | None = None,
                    train: bool = False,
                    dropout_rate: float = 0.1) -> EventDetector:
-    """AED detector (detector.py:109-143): Darknet-21 + YOLOPAFPN +
-    YOLOXHead. stem: one of _STEMS. input_channels is the volume's 2K (per
-    subpixel block for the p64 stems).
+    """The exp-type model matrix (detector.py:109-143). family "aed":
+    Darknet-21 + YOLOPAFPN + YOLOXHead, `in_channels` wide; "yolox":
+    CSPDarknet (dep_mul 0.33, wid_mul 0.5) + YOLOPAFPN at depth 0.33 over
+    its (128, 256, 512) channels + YOLOXHead, as JAX sets them whatever
+    `in_channels`, `depth` and `stem_out_channels` say. stem: one of
+    _STEMS. input_channels is the volume's 2K (per subpixel block for the
+    p64 stems).
     Parameters are initialised from `generator` (a fresh seed-0 generator
     when None); the model is on the CPU, in f32, in eval mode, or in
     training mode when `train`. dropout_rate is the BFM stems' dropout in
     training (stems.py:100), taken by every BFM stem; the kernel stems
     refuse training."""
-    if family != "aed":
-        raise ValueError(f"the port builds family 'aed' only, got {family!r}")
     if stem not in _STEMS:
         raise ValueError(f"the port has stems {sorted(_STEMS)}, got {stem!r}")
     stem_cls = _STEMS[stem]
     if issubclass(stem_cls, _BFMChain):
         stem_cls = partial(stem_cls, dropout_rate=dropout_rate)
-    backbone = Darknet(stem_cls, input_channels,
-                       stem_out_channels=stem_out_channels,
-                       out_channels=tuple(in_channels), act=act)
+    if family == "aed":
+        backbone = Darknet(stem_cls, input_channels,
+                           stem_out_channels=stem_out_channels,
+                           out_channels=tuple(in_channels), act=act)
+    elif family == "yolox":
+        in_channels, depth = (128, 256, 512), 0.33
+        backbone = CSPDarknet(stem_cls, input_channels, dep_mul=0.33,
+                              wid_mul=0.5, act=act)
+    else:
+        raise ValueError(f"the port builds families 'aed' and 'yolox', "
+                         f"got {family!r}")
     neck = YOLOPAFPN(depth=depth, in_channels=tuple(in_channels), act=act)
     head = YOLOXHead(num_classes, tuple(in_channels), strides=strides,
                      width=head_width, act=act)

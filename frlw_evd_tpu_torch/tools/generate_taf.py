@@ -14,7 +14,6 @@ The queue runs on `-device` (default cuda, which raises without a card).
 
 from __future__ import annotations
 
-import argparse
 import os
 import time
 
@@ -25,14 +24,14 @@ from ..encode.taf import (bucket_events_for_taf, encode_taf_window,
                           leaky_transform, taf_init_state)
 from ..events import PSEELoader
 from ..pipeline import resolve_device
-from .generate_common import (GEOMETRY, events_to_xytp, iter_streams,
+from .generate_common import (SPLITS, count_blob, events_to_xytp, geometry,
+                              iter_streams, new_stats, parse_args,
                               unique_annotation_times)
 
 MIN_EVENT_COUNT = 50_000_000
 BIN_US = 10_000
 K = 8
 MAX_EVENTS_PER_BIN = 2**17
-SPLITS = ("train", "val", "test")
 
 
 def _finisher(enc_shape, target_shape, upscale: bool):
@@ -56,21 +55,15 @@ def generate_taf(raw_dir: str, label_dir: str, target_dir: str,
                  dataset: str = "gen1", device="cuda",
                  splits=SPLITS) -> dict:
     """Write the TAF blobs of every split under target_dir/taf. Returns
-    {"blobs": the pairs written, "encode_s": their encode and read-back
-    seconds on the host clock, "test_blobs", "test_encode_s"}."""
+    generate_common.new_stats' counts, a blob being a bins4 / bins8
+    pair."""
     dev = resolve_device(device)
-    geo = GEOMETRY[dataset]
-    shape, target_shape = geo["shape"], geo["target_shape"]
-    rh = target_shape[0] / shape[0]
-    rw = target_shape[1] / shape[1]
-    upscale = target_shape[0] >= shape[0]
-    enc_shape = shape if upscale else target_shape
+    target_shape, rh, rw, upscale, enc_shape = geometry(dataset)
     events_window = BIN_US * K
     finish = _finisher(enc_shape, target_shape, upscale)
 
     out_dir = os.path.join(target_dir, "taf")
-    stats = {"blobs": 0, "encode_s": 0.0, "test_blobs": 0,
-             "test_encode_s": 0.0}
+    stats = new_stats()
     for mode in splits:
         target_root = os.path.join(out_dir, mode)
         for b in (f"bins{K // 2}", f"bins{K}"):
@@ -128,12 +121,7 @@ def generate_taf(raw_dir: str, label_dir: str, target_dir: str,
                     state, torch.from_numpy(binned).to(dev),
                     torch.from_numpy(bin_valid).to(dev))
                 blob_new, blob_old = finish(state)
-                took = time.perf_counter() - tick
-                stats["blobs"] += 1
-                stats["encode_s"] += took
-                if mode == "test":
-                    stats["test_blobs"] += 1
-                    stats["test_encode_s"] += took
+                count_blob(stats, mode, time.perf_counter() - tick)
 
                 blob_new.tofile(os.path.join(
                     target_root, f"bins{K // 2}", f"{name}_{unique_time}.npy"))
@@ -149,14 +137,7 @@ def generate_taf(raw_dir: str, label_dir: str, target_dir: str,
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser()
-    parser.add_argument("-raw_dir", type=str, required=True)
-    parser.add_argument("-label_dir", type=str, required=True)
-    parser.add_argument("-target_dir", type=str, required=True)
-    parser.add_argument("-dataset", type=str, default="gen1",
-                        choices=sorted(GEOMETRY))
-    parser.add_argument("-device", type=str, default="cuda")
-    args = parser.parse_args(argv)
+    args = parse_args(argv)
     return generate_taf(args.raw_dir, args.label_dir, args.target_dir,
                         args.dataset, args.device)
 

@@ -1,10 +1,13 @@
-"""Training of the port (counterpart of frlw_evd_tpu/train): the AED SimOTA
-train and eval steps with f32 master weights and bf16 compute, the epoch
-loop (`Trainer`), the learning-rate schedules, the EMA, the experiment
-config and .pth checkpoints."""
+"""Training of the port (counterpart of frlw_evd_tpu/train): the SimOTA
+train and eval steps of the aed and yolox families with f32 master
+weights and bf16 compute (remat and patchify included), the epoch loop
+(`Trainer`), the learning-rate schedules, the EMA, the experiment config,
+.pth checkpoints, the reference .pth import and the backbone freeze."""
 
-from .checkpoints import (load_checkpoint, load_pretrained_backbone,
-                          save_checkpoint, save_part_checkpoints)
+from .checkpoints import (default_rename, freeze_backbone_tx,
+                          import_torch_checkpoint, load_checkpoint,
+                          load_pretrained_backbone, save_checkpoint,
+                          save_part_checkpoints)
 from .config import EXP_TYPES, ExpConfig, make_config
 from .ema import ema_init, ema_update
 from .schedule import (cos_schedule, multistep_schedule, warm_cos_schedule,
@@ -15,7 +18,8 @@ from .trainer import (Trainer, TrainState, Tx, adam, create_train_state,
 
 __all__ = ["EXP_TYPES", "ExpConfig", "TRAIN_CONFIGS", "TrainState",
            "Trainer", "Tx", "adam", "cos_schedule", "create_train_state",
-           "ema_init", "ema_update", "load_checkpoint",
+           "default_rename", "ema_init", "ema_update", "freeze_backbone_tx",
+           "import_torch_checkpoint", "load_checkpoint",
            "load_pretrained_backbone", "make_config", "make_eval_step",
            "make_train_step", "multistep_schedule", "run_train",
            "save_checkpoint", "save_part_checkpoints", "sgd",

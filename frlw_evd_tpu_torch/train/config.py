@@ -62,9 +62,10 @@ class ExpConfig:
     use_ema: bool = False              # eval/best-checkpoint use EMA params
                                        # (ModelEMA exists but is unused in
                                        # the reference trainer; opt-in here)
-    remat: bool = False                # jax.checkpoint the forward pass:
-                                       # trades recompute FLOPs for
-                                       # activation memory (big batch / 1Mpx)
+    remat: bool = False                # checkpoint the whole forward pass,
+                                       # as JAX's jax.checkpoint: recompute
+                                       # FLOPs, but no peak memory saved
+                                       # on the card (chip_smoke phase 33)
     patchified: bool = False           # route train/eval through the
                                        # quarter-res p64 stem (identical
                                        # params/math; the full-res C-minor

@@ -3,8 +3,10 @@ run_train_bench and its gen1_train / gen4_train configs,
 bench.py:101-106, :460-564).
 
 `run_train` builds the AED (Darknet-21, YOLOPAFPN, YOLOXHead, 256 wide,
-stem `bfm`) with seeded random weights, Adam at 1e-3, centre radius 2.5
-and bf16 compute over f32 masters, with the stem's dropout active; makes
+stem `bfm`, or `bfm_p64` with p64) with seeded random weights, Adam at
+1e-3, centre radius 2.5 and bf16 compute over f32 masters, with the
+stem's dropout active, and the step's remat and patchify switches of
+bench.py's run_train_bench (bench.py:460-490); makes
 the bench's synthetic batches with numpy; runs warm-up steps, the first
 under a FLOP counter, then timed steps ending in a host read, and on the
 card, when asked, as many steps again under torch.profiler.
@@ -90,12 +92,16 @@ def device_batches(cfg: dict, dev, *, seed: int = 0,
 def run_train(config, *, steps: int = 10, warmup: int = 2,
               events_kind: str = "uniform", seed: int = 0,
               model: EventDetector | None = None, device="cuda",
-              profile: bool = False) -> dict:
+              profile: bool = False, remat: bool = False,
+              remat_policy: str | None = None, p64: bool = False) -> dict:
     """`warmup` + `steps` train steps of `config`: a TRAIN_CONFIGS key, or
     a dict with the same keys (input_hw, batch, num_classes).
 
-    model: the AED to train, built here (stem bfm, 256 wide, weights from
-    torch seed `seed`) when None. The batches are `device_batches`'.
+    model: the AED to train, built here (stem bfm, or bfm_p64 with p64,
+    256 wide, weights from torch seed `seed`) when None. The batches are
+    `device_batches`'. remat, remat_policy: make_train_step's; p64: the
+    step patchifies the volume (make_train_step's patchify) for a p64
+    stem.
     Returns {"state", "losses": [per-step dict of floats], "ms_per_step",
     "windows_per_s", "flops_per_step" (the first warm-up step, counted as
     utils/profiling.py says), "peak_bytes" (max_memory_allocated over the
@@ -117,11 +123,13 @@ def run_train(config, *, steps: int = 10, warmup: int = 2,
         raise ValueError("run_train profiles the card's kernels only")
     batch, nc = cfg["batch"], cfg["num_classes"]
     if model is None:
-        model = build_detector(nc, stem="bfm", train=True,
+        model = build_detector(nc, stem="bfm_p64" if p64 else "bfm",
+                               train=True,
                                generator=torch.Generator().manual_seed(seed))
     state = create_train_state(model, adam(LR), device=dev)
     step = make_train_step(STRIDES, nc, RADIUS, half_precision=True,
-                           device=dev)
+                           remat=remat, remat_policy=remat_policy,
+                           patchify=p64, device=dev)
 
     data = device_batches(cfg, dev, seed=seed, events_kind=events_kind)
     n_inputs = len(data)

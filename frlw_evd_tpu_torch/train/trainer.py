@@ -12,12 +12,15 @@ updates. (torch.autocast would keep f32 weights and cast per operation.)
 The head maps are cast to f32 before the loss.
 
 PyTorch runs eagerly, so there is no jit; a step updates its TrainState in
-place and returns the loss tensors without a host sync. `Trainer` runs
-the experiment over the blob datasets: epochs of train steps fed two
-batches ahead from pinned host memory, per-epoch validation with COCO
-stats, the last and the best checkpoint, resume and test. `remat`,
-`patchify` and the yolov3 / red / memory families are not ported yet
-(ROADMAP A.11, A.13); the Trainer refuses them.
+place and returns the loss tensors without a host sync. With remat the
+differentiated forward runs under torch.utils.checkpoint (non-reentrant),
+the counterpart of jax.checkpoint; with patchify the step space-to-depths
+the volume once for a p64 stem. `Trainer` runs the experiment over the
+blob datasets: epochs of train steps fed two batches ahead from pinned
+host memory, per-epoch validation with COCO stats, the last and the best
+checkpoint, resume and test, for the aed and yolox families. The yolov3 /
+red / memory families are not ported yet (ROADMAP A.13); the Trainer
+refuses them.
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..data import Loader, PropheseeDataset, PropheseeTafDataset
 from ..evaluate import Evaluator, Recorder
+from ..models.blocks import BatchNorm2d, space_to_depth_patches
 from ..models.detector import (EventDetector, build_detector, detector_loss,
                                eval_decode)
 from ..models.postprocess import finalize_detections, postprocess_batch
@@ -50,8 +56,9 @@ from .schedule import yolox_warm_cos_schedule
 
 class Tx(NamedTuple):
     """An optimiser recipe, the port's optax.GradientTransformation: `make`
-    builds the torch optimiser over the parameters; `schedule`, when set,
-    gives the lr of each update from the number of updates before it."""
+    builds the torch optimiser over (name, parameter) pairs, as
+    model.named_parameters() gives them; `schedule`, when set, gives the
+    lr of each update from the number of updates before it."""
     make: Callable[..., torch.optim.Optimizer]
     schedule: Optional[Callable[[int], float]] = None
 
@@ -71,15 +78,17 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
     weight cache reads (models/stem_chain.packed_weights). (Naming
     fused=False alone would select the per-tensor loop.)"""
     lr, schedule = _lr(learning_rate)
-    return Tx(lambda params: torch.optim.Adam(params, lr=lr, betas=(b1, b2),
-                                              eps=eps, foreach=True),
+    return Tx(lambda named: torch.optim.Adam([p for _, p in named], lr=lr,
+                                             betas=(b1, b2), eps=eps,
+                                             foreach=True),
               schedule)
 
 
 def sgd(learning_rate) -> Tx:
     """optax.sgd without momentum: p - lr * g, multi-tensor as adam's."""
     lr, schedule = _lr(learning_rate)
-    return Tx(lambda params: torch.optim.SGD(params, lr=lr, foreach=True),
+    return Tx(lambda named: torch.optim.SGD([p for _, p in named], lr=lr,
+                                            foreach=True),
               schedule)
 
 
@@ -113,7 +122,8 @@ def create_train_state(model: EventDetector, tx: Tx, *,
     model.to(device=dev, dtype=torch.float32).train()
     if dev.type == "cuda":
         model.to(memory_format=torch.channels_last)
-    return TrainState(0, model, tx.make(model.parameters()), tx.schedule)
+    return TrainState(0, model, tx.make(model.named_parameters()),
+                      tx.schedule)
 
 
 def _compute_params(params: dict[str, torch.Tensor],
@@ -133,10 +143,68 @@ def _forward(model: EventDetector, imgs, half_precision: bool):
     return [o.float() for o in functional_call(model, params, (imgs,))]
 
 
+# the outputs remat_policy "dots" keeps, as jax.checkpoint_policies.
+# checkpoint_dots keeps dot_general and conv_general_dilated outputs
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_contexts(remat_policy, model, generator: torch.Generator):
+    """context_fn for torch.utils.checkpoint: the forward runs as it is (or
+    under the "dots" policy's caching mode); the recompute replays the
+    forward's dropout masks and leaves the running statistics of `model`'s
+    BatchNorms alone. checkpoint's preserve_rng_state restores the default
+    generators only, so the dropout generator's state is taken when the
+    forward starts, set back for the recompute and restored after it."""
+    def context_fn():
+        if remat_policy == "dots":
+            forward_ctx, inner = create_selective_checkpoint_contexts(
+                _save_dots)
+        else:
+            forward_ctx, inner = (contextlib.nullcontext(),
+                                  contextlib.nullcontext())
+        return forward_ctx, _replay(inner, model, generator,
+                                    generator.get_state())
+    return context_fn
+
+
+@contextlib.contextmanager
+def _stats_frozen(model):
+    """`model`'s BatchNorms normalise without updating their running
+    statistics inside (a flag on each module, which autograd's recompute
+    thread sees)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.update_stats
+
+
+@contextlib.contextmanager
+def _replay(inner, model, generator: torch.Generator, forward_state):
+    after = generator.get_state()
+    generator.set_state(forward_state)
+    try:
+        with _stats_frozen(model), inner:
+            yield
+    finally:
+        generator.set_state(after)
+
+
 def make_train_step(strides, num_classes: int, radius: float,
-                    half_precision: bool = False, *, device="cuda"):
+                    half_precision: bool = False, *, remat: bool = False,
+                    remat_policy: Optional[str] = None,
+                    patchify: bool = False, device="cuda"):
     """Returns train_step(state, imgs, labels, generator) -> losses
-    (trainer.py:234-288, without remat and patchify).
+    (trainer.py:234-288).
 
     imgs: (N, H, W, 2K) volumes; labels: (N, G, 5) f32 rows [class, cx,
     cy, w, h], zero rows padding; both are moved to the device. generator:
@@ -144,7 +212,23 @@ def make_train_step(strides, num_classes: int, radius: float,
     runs the model in training mode (batch statistics, running statistics
     updated, dropout), backpropagates total_loss to the f32 masters and
     updates them in place; it leaves the gradients in .grad and returns
-    the dict of detached loss tensors."""
+    the dict of detached loss tensors.
+
+    remat: the forward is recomputed in the backward (torch.utils.
+    checkpoint, non-reentrant) instead of keeping its activations;
+    remat_policy None recomputes all of it, "dots" keeps every conv and
+    matmul output and recomputes the rest. The recompute reuses the
+    forward's dropout masks and does not update the BatchNorm statistics
+    again, so a remat step computes what the plain step does. One
+    checkpoint spans the whole forward, as JAX's: the recompute holds all
+    of its activations again as the backward starts, so the peak memory
+    barely moves (gen1_train at batch 64 on an H100: 0.97x the plain
+    step's peak at 1.4-1.8x its ms/step, chip_smoke.py phase 33). patchify:
+    the volume is space-to-depth'd to (N, H/2, W/2, 4 * 2K) once, after
+    the bf16 cast, for a model with a p64 stem (`bfm_p64`, `focus_p64`)."""
+    if remat_policy not in (None, "dots"):
+        raise ValueError(f"remat_policy must be None or 'dots', got "
+                         f"{remat_policy!r}")
     dev = resolve_device(device)
 
     def train_step(state: TrainState, imgs, labels, generator):
@@ -153,8 +237,16 @@ def make_train_step(strides, num_classes: int, radius: float,
             if isinstance(mod, Dropout):
                 mod.generator = generator
         imgs = imgs.to(dev, torch.bfloat16 if half_precision else None)
+        if patchify:
+            imgs = space_to_depth_patches(imgs)
         state.optimizer.zero_grad(set_to_none=True)
-        outs = _forward(model, imgs, half_precision)
+        if remat:
+            outs = checkpoint(_forward, model, imgs, half_precision,
+                              use_reentrant=False,
+                              context_fn=_remat_contexts(remat_policy, model,
+                                                         generator))
+        else:
+            outs = _forward(model, imgs, half_precision)
         losses = detector_loss(outs, labels.to(dev), strides, num_classes,
                                radius)
         losses["total_loss"].backward()
@@ -165,16 +257,20 @@ def make_train_step(strides, num_classes: int, radius: float,
 
 
 def make_eval_step(strides, max_detections: int = 200,
-                   half_precision: bool = False, *, device="cuda"):
+                   half_precision: bool = False, *, patchify: bool = False,
+                   device="cuda"):
     """Returns eval_step(state, imgs) -> (dets, keep) (trainer.py:291-315):
-    the model in eval mode on _compute_params, f32 decode, then
-    postprocess_batch with its defaults and `max_detections`."""
+    the model in eval mode on _compute_params (the volume patchified first
+    when `patchify`), f32 decode, then postprocess_batch with its defaults
+    and `max_detections`."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def eval_step(state: TrainState, imgs):
         model = state.model.eval()
         imgs = imgs.to(dev, torch.bfloat16 if half_precision else None)
+        if patchify:
+            imgs = space_to_depth_patches(imgs)
         decoded = eval_decode(_forward(model, imgs, half_precision), strides)
         return postprocess_batch(decoded, max_detections=max_detections)
 
@@ -185,29 +281,41 @@ class Trainer:
     """End-to-end experiment runner (trainer.py:318-645, reference
     basicExp) on `device` (default "cuda", which raises without a card).
 
-    The model is the AED of build_detector with cfg's stem, widths and
-    input channels, its weights from torch seed cfg.seed; a caller may
-    replace `self.model` before `build`. The dropout masks come from a
-    torch.Generator seeded cfg.seed + 1. Each `train_epoch` appends to
-    `history` its epoch, per-step losses, wall seconds (ending in the host
-    read of the losses) and the seconds the loop waited for the next
-    batch; `_train_loop` adds the epoch's validation under "val" (the
-    stats, the detection loop's and the COCO evaluation's seconds, also
-    left in `last_eval` by each `eval_epoch`)."""
+    The model is build_detector's for cfg's family (aed or yolox), stem,
+    widths and input channels, its weights from torch seed cfg.seed; with
+    cfg.patchified the stem is its p64 variant (bfm → bfm_p64, focus →
+    focus_p64) and both steps patchify the volume; cfg.remat makes the
+    train step rematerialise its forward (full remat, as JAX's Trainer
+    asks). A caller may replace `self.model` before `build`. The dropout
+    masks come from a torch.Generator seeded cfg.seed + 1. Each
+    `train_epoch` appends to `history` its epoch, per-step losses, wall
+    seconds (ending in the host read of the losses) and the seconds the
+    loop waited for the next batch; `_train_loop` adds the epoch's
+    validation under "val" (the stats, the detection loop's and the COCO
+    evaluation's seconds, also left in `last_eval` by each
+    `eval_epoch`)."""
 
     def __init__(self, cfg: ExpConfig, *, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.patchified and (cfg.family in ("red", "yolov3")
+                               or cfg.memory):
+            raise ValueError(
+                "patchified=True is only wired for the single-window "
+                "aed/yolox families (p64 stems)")
         if cfg.family in ("yolov3", "red") or cfg.memory:
             raise NotImplementedError(
                 f"the {cfg.memory or cfg.family} family is not ported yet "
                 f"(ROADMAP A.13)")
-        for flag in ("patchified", "remat"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag}=True is not ported yet (ROADMAP A.11)")
+        stem = cfg.stem
+        if cfg.patchified:
+            patched = {"bfm": "bfm_p64", "focus": "focus_p64"}
+            if stem not in patched:
+                raise ValueError(
+                    f"patchified=True has no p64 variant of stem {stem!r}")
+            stem = patched[stem]
         self.model = build_detector(
-            cfg.num_classes, family=cfg.family, stem=cfg.stem, act=cfg.act,
+            cfg.num_classes, family=cfg.family, stem=stem, act=cfg.act,
             strides=cfg.strides, in_channels=cfg.in_channels,
             depth=cfg.depth, input_channels=cfg.input_channels,
             generator=torch.Generator().manual_seed(cfg.seed), train=True)
@@ -272,10 +380,11 @@ class Trainer:
                                         device=self.device)
         self.train_step = make_train_step(
             cfg.strides, cfg.num_classes, cfg.center_radius,
-            cfg.half_precision, device=self.device)
+            cfg.half_precision, remat=cfg.remat, patchify=cfg.patchified,
+            device=self.device)
         self.eval_step = make_eval_step(
             cfg.strides, half_precision=cfg.half_precision,
-            device=self.device)
+            patchify=cfg.patchified, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
         self.ema_params = (ema_init(dict(self.model.named_parameters()))

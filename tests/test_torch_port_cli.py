@@ -1,7 +1,7 @@
 """The port's entries cli/train.py and cli/test.py: the flag mapping of the
-repository's train.py / test.py (tests/test_cli.py), less the JAX-only
---rng_impl, --patchified and --remat, plus --device and the geometry
-overrides; one end-to-end run on the CPU (a narrow AED in place of the
+repository's train.py / test.py (tests/test_cli.py), --patchified and
+--remat included, less the JAX-only --rng_impl, plus --device and the
+geometry overrides; one end-to-end run on the CPU (a narrow AED in place of the
 full-width one, as tests/test_cli.py's SmallTrainer does); the card rule;
 and the `python -m` entries."""
 
@@ -60,10 +60,21 @@ def test_train_cli_flag_mapping(monkeypatch, tmp_path):
     assert cfg.augmentation is False and cfg.max_epoch_to_stop == 2
     assert cfg.seed == 7 and cfg.stem == "bfm"
     assert cfg.img_size == (64, 96) and cfg.sensor_hw == (60, 76)
-    for flag in ("--rng_impl", "--patchified", "--remat"):
-        with pytest.raises(SystemExit):
-            cli_train.parse_args(["--data_path", "d", "--bbox_path", "b",
-                                  flag])
+    assert cfg.patchified is False and cfg.remat is False
+    with pytest.raises(SystemExit):
+        cli_train.parse_args(["--data_path", "d", "--bbox_path", "b",
+                              "--rng_impl", "rbg"])
+
+
+def test_train_cli_passes_patchified_and_remat(monkeypatch, tmp_path):
+    """--patchified and --remat (train.py:43-50) reach the config."""
+    monkeypatch.setattr(cli_train, "Trainer", _SpyTrainer)
+    cli_train.main(["--exp_type", "yolox_taf_bfm", "--data_path",
+                    str(tmp_path / "d"), "--bbox_path", str(tmp_path / "b"),
+                    "--patchified", "--remat", "--device", "cpu"])
+    cfg, device = _SpyTrainer.last
+    assert cfg.patchified is True and cfg.remat is True
+    assert cfg.family == "yolox" and cfg.stem == "bfm" and device == "cpu"
 
 
 def test_test_cli_flag_mapping(monkeypatch, tmp_path, capsys):

@@ -656,7 +656,7 @@ def test_folded_stem_sees_optimizer_updates(cuda):
     with torch.no_grad():
         first = bfm_chain_apply_folded(vol, params, width=12)
     versions = {k: p._version for k, p in params.items()}
-    opt = adam(0.1).make(model.parameters())
+    opt = adam(0.1).make(model.named_parameters())
     g = torch.Generator(device=cuda).manual_seed(3)
     for _ in range(3):
         for p in model.parameters():

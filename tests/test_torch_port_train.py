@@ -124,7 +124,7 @@ def f32_steps(setup):
 def f64_steps(setup):
     jm, variables, imgs, labels = setup
     model = port_model(variables).double()
-    state = TrainState(0, model, sgd(1e-2).make(model.parameters()))
+    state = TrainState(0, model, sgd(1e-2).make(model.named_parameters()))
     with jax.enable_x64(True):
         v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
         want = jax_sgd_step(jm, v64, imgs.astype(np.float64), labels)

@@ -223,7 +223,7 @@ def test_optimizer_steps_bump_version_counters():
     update the parameters in place and bump it."""
     for tx in (adam(1e-3), sgd(1e-2)):
         p = torch.nn.Parameter(torch.ones(3))
-        opt = tx.make([p])
+        opt = tx.make([("p", p)])
         p.grad = torch.ones(3)
         before = p._version
         opt.step()

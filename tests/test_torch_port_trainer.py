@@ -55,11 +55,11 @@ def tree(tmp_path_factory):
 
 
 def _cfg_kw(tree, log_path, **kw):
-    return dict(dataset="gen1", batch_size=2, num_workers=1,
-                event_volume_bins=8, augmentation=False,
-                half_precision=False, img_size_override=INPUT,
-                sensor_hw_override=SENSOR, data_path=tree["taf_dir"],
-                bbox_path=tree["labels"], log_path=str(log_path), **kw)
+    return {**dict(dataset="gen1", batch_size=2, num_workers=1,
+                   event_volume_bins=8, augmentation=False,
+                   half_precision=False, img_size_override=INPUT,
+                   sensor_hw_override=SENSOR, data_path=tree["taf_dir"],
+                   bbox_path=tree["labels"], log_path=str(log_path)), **kw}
 
 
 def _port_model(**kw):
@@ -190,12 +190,28 @@ def test_finalize_detections_equals_jax():
     np.testing.assert_array_equal(got[1], np.zeros((1, 6), np.float32))
 
 
-def _small_trainer(tree, log_path, name, **kw):
-    trainer = Trainer(make_config("taf_bfm", exp_name=name,
+def _small_trainer(tree, log_path, name, exp_type="taf_bfm", model=None,
+                   **kw):
+    trainer = Trainer(make_config(exp_type, exp_name=name,
                                   **_cfg_kw(tree, log_path, **kw)),
                       device="cpu")
-    trainer.model = _port_model(generator=torch.Generator().manual_seed(0))
+    trainer.model = model or _port_model(
+        generator=torch.Generator().manual_seed(0))
     return trainer
+
+
+def _one_epoch(trainer):
+    """train() for one epoch; checks what it ran and wrote, returns the
+    epoch's history entry."""
+    trainer.train()
+    assert [h["epoch"] for h in trainer.history] == [0]
+    hist = trainer.history[0]
+    assert hist["steps"] == 3
+    assert all(np.isfinite(v) for lo in hist["losses"] for v in lo.values())
+    assert len(hist["val"]["stats"]) == 6
+    for name in ("last_epoch", "best_epoch"):
+        assert os.path.exists(os.path.join(trainer.ckpt_dir, name)), name
+    return hist
 
 
 @pytest.mark.parametrize("use_ema", [False, True], ids=["masters", "ema"])
@@ -253,8 +269,7 @@ def test_train_epoch_and_resume(tree, tmp_path, use_ema):
 
 @pytest.mark.parametrize("field,value,item", [
     ("family", "yolov3", "A.13"), ("family", "red", "A.13"),
-    ("memory", "convlstm", "A.13"), ("patchified", True, "A.11"),
-    ("remat", True, "A.11")])
+    ("memory", "convlstm", "A.13")])
 def test_trainer_refuses_unported(tree, tmp_path, field, value, item):
     cfg = make_config("taf_bfm", **_cfg_kw(tree, tmp_path))
     setattr(cfg, field, value)
@@ -267,3 +282,113 @@ def test_trainer_asks_for_the_card(tree, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(make_config("taf_bfm", **_cfg_kw(tree, tmp_path)))
     assert not os.path.exists(tmp_path / "taf_bfm")
+
+
+def test_trainer_trains_basic_on_port_made_ev_blobs(tree, tmp_path,
+                                                    monkeypatch):
+    """`basic` (aed, focus stem, 5 bins: 10 channels) over the Event
+    Volume blobs of tools.generate_eventvolume, run on the tree at its
+    120x152 → 128x160 geometry."""
+    from frlw_evd_tpu_torch.tools import generate_common
+    from frlw_evd_tpu_torch.tools.generate_eventvolume import \
+        generate_eventvolume
+
+    monkeypatch.setitem(generate_common.GEOMETRY, "tree",
+                        dict(shape=SENSOR, target_shape=INPUT))
+    out = str(tmp_path / "blobs")
+    stats = generate_eventvolume(tree["events"], tree["labels"], out,
+                                 "tree", "cpu")
+    assert stats["blobs"] == 3 * 3 * 6        # splits x windows x times
+    model = build_detector(2, stem="focus", input_channels=10, train=True,
+                           generator=torch.Generator().manual_seed(0),
+                           **NARROW)
+    trainer = _small_trainer(tree, tmp_path, "basic", exp_type="basic",
+                             model=model, event_volume_bins=5,
+                             max_epoch_to_stop=1,
+                             data_path=os.path.join(out, "EventVolume250000"))
+    assert trainer.cfg.input_channels == 10
+    _one_epoch(trainer)
+
+
+def test_trainer_trains_yolox_taf_bfm(tree, tmp_path):
+    """`yolox_taf_bfm`: the Trainer builds CSPDarknet with the bfm stem;
+    one epoch on the TAF blobs with its head narrowed to 32."""
+    cfg = make_config("yolox_taf_bfm", exp_name="built",
+                      **_cfg_kw(tree, tmp_path))
+    built = Trainer(cfg, device="cpu").model
+    assert type(built.backbone).__name__ == "CSPDarknet"
+    assert type(built.backbone.stem).__name__ == "BinsFusionModule"
+    model = build_detector(2, family="yolox", stem="bfm", head_width=32,
+                           dropout_rate=0.0, input_channels=16, train=True,
+                           generator=torch.Generator().manual_seed(0))
+    _one_epoch(_small_trainer(tree, tmp_path, "yolox",
+                              exp_type="yolox_taf_bfm", model=model,
+                              max_epoch_to_stop=1))
+
+
+@pytest.mark.parametrize("exp_type,stem", [("taf_bfm", "BinsFusionModule"),
+                                           ("basic", "FocusPatched")])
+def test_trainer_builds_the_p64_stems(tree, tmp_path, exp_type, stem):
+    cfg = make_config(exp_type, patchified=True, remat=True,
+                      **_cfg_kw(tree, tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    assert type(trainer.model.backbone.stem).__name__ == (
+        "BinsFusionModulePatched" if stem == "BinsFusionModule" else stem)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("stem", "bfm_folded"), ("family", "yolov3"), ("family", "red"),
+    ("memory", "convlstm")])
+def test_trainer_refuses_patchified_without_a_p64_path(tree, tmp_path,
+                                                       field, value):
+    cfg = make_config("taf_bfm", patchified=True, **_cfg_kw(tree, tmp_path))
+    setattr(cfg, field, value)
+    with pytest.raises(ValueError, match="patchified"):
+        Trainer(cfg, device="cpu")
+
+
+def test_trainer_patchified_epoch_equals_canonical(tree, tmp_path):
+    """One epoch with patchified=True and remat=True (the bfm_p64 stem, the
+    steps patchifying) from the canonical model's weights, dropout 0: each
+    step's losses within rtol 2e-4 of the canonical epoch's."""
+    canon = _port_model(generator=torch.Generator().manual_seed(0))
+    p64 = build_detector(2, stem="bfm_p64", train=True, dropout_rate=0.0,
+                         **NARROW)
+    p64.load_state_dict(canon.state_dict())
+    want = _one_epoch(_small_trainer(tree, tmp_path, "canon", model=canon,
+                                     max_epoch_to_stop=1))
+    got = _one_epoch(_small_trainer(tree, tmp_path, "p64", model=p64,
+                                    max_epoch_to_stop=1, patchified=True,
+                                    remat=True))
+    for g, w in zip(got["losses"], want["losses"]):
+        for k, v in w.items():
+            np.testing.assert_allclose(g[k], v, rtol=2e-4, err_msg=k)
+
+
+def test_test_under_ema_scores_the_best_epoch(tree, tmp_path):
+    """ROADMAP C: with use_ema, best_epoch holds the EMA parameters and
+    test() scores them as saved, equal to eval_epoch on that checkpoint;
+    the JAX Trainer would score a fresh EMA initialisation instead."""
+    first = _small_trainer(tree, tmp_path, "ema", max_epoch_to_stop=1,
+                           use_ema=True)
+    first.train()
+    ckpt = os.path.join(first.ckpt_dir, "best_epoch")
+    best = torch.load(ckpt, weights_only=True)["model"]
+    last = torch.load(os.path.join(first.ckpt_dir, "last_epoch"),
+                      weights_only=True)["model"]
+    assert not torch.equal(best["head.obj_preds_0.weight"],
+                           last["head.obj_preds_0.weight"])
+
+    tested = _small_trainer(tree, tmp_path, "ema", use_ema=True,
+                            resume_exp="ema")
+    stats = tested.test()
+    assert tested.ema_params is None
+
+    ref = _small_trainer(tree, tmp_path, "ref")
+    ref.create_test_dataset()
+    ref.build(1)
+    load_checkpoint(ckpt, ref.state)
+    for k, v in ref.model.state_dict().items():
+        torch.testing.assert_close(v, best[k], rtol=0, atol=0, msg=k)
+    want = ref.eval_epoch(ref.make_evaluator())
+    np.testing.assert_array_equal(np.asarray(stats), np.asarray(want))
