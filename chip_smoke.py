@@ -173,9 +173,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
      1e-3; ms an encode on each device; no kernel launched;
  32. Trainer.train() at batch 64, full GEN1 width, one epoch with
      validation: `basic` (aed, focus, 10 channels) on phase 31's EV blobs
-     and `yolox_taf_bfm` (CSPDarknet, bfm) on phase 28's TAF blobs: at
-     least 3 steps, every loss and COCO stat finite, best_epoch written,
-     no kernel launched; ms/step and the loader-wait share;
+     and `yolox_taf_bfm` (CSPDarknet, bfm) on phase 28's TAF blobs, held
+     and printed as phases 35 and 36;
  33. gen1_train at batch 64 four ways (plain, remat, p64, both): one f32
      step (TF32 off) from the same weights, batch and dropout seed, remat
      against plain and remat_p64 against p64 with dropout on, p64 against
@@ -185,7 +184,27 @@ Phases (any failure exits non-zero; no phase catches and continues):
  34. a yolox_taf_bfm model (CSPDarknet, bfm stem, 2 classes, bf16) served
      through make_pipeline_kernel at GEN1, B = 128, E = 16384, as phase 4
      (B1 and B2 on every window; windows/s, encode_transform and detect
-     ms), then phase 5's card-against-CPU check with a small yolox model.
+     ms), then phase 5's card-against-CPU check with a small yolox model;
+ 35. Trainer.train() of `yolov3_taf_bfm` (Darknet-53, BFM stem, the
+     YOLOv3 FPN and anchor head, gt_creator's targets) at the config's
+     640x640 with clipping over phase 28's tree, its TAF blobs generated
+     on the card at 640x640, batch 64 (halved until it fits), bf16 over
+     f32 masters, one epoch with validation;
+ 36. Trainer.train() of `red`, `convlstm` and `recconv` on phase 31's EV
+     blobs at GEN1 256x320, batch 64, the config's widths (in_channels
+     256), one epoch with validation. 35 and 36: at least 3 steps, every
+     loss and COCO stat finite, best_epoch written, no kernel launched;
+     ms/step, the loader-wait share (and gt_creator's host seconds),
+     peak memory, FLOPs of a step counted as phase 17 counts them, MFU;
+     then Trainer.test() on best_epoch, its stats within 1e-6 of the
+     epoch's validation;
+ 37. card against CPU, small, f32 with TF32 off: one train step of each
+     of the five exp types through its Trainer's steps from the same
+     seeded weights (dropout 0) and batch: the eval step's decoded rows
+     of every level before NMS and its detections after it by DET_GATES,
+     losses within rtol 2e-4, BatchNorm statistics within 1e-5 (the
+     yolov3 families' within 1e-5 of max(|value|, 1)); then one bf16 red
+     step on the card, its losses finite.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -199,6 +218,8 @@ windows/s and ms/step are on the host clock.
 from __future__ import annotations
 
 import ast
+import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -2852,54 +2873,17 @@ def _run_generators(mods, tree, val0, n_times, oracles, counters, dev,
 
 
 def run_trainer_families(train, data, ev_dir, counters, dev, card,
-                         synthetic_train):
-    """Phase 32: Trainer.train() at batch 64, full GEN1 width, one epoch
-    with validation: `basic` (aed, focus stem, 10 channels) on phase 31's
-    EV blobs, then `yolox_taf_bfm` (CSPDarknet, bfm stem) on phase 28's
-    TAF blobs. Each: at least 3 steps, every loss and COCO stat finite,
-    best_epoch written, no kernel launched. Prints ms/step and the share
-    of it the loop waited for the loader."""
+                         card_name, synthetic_train):
+    """Phase 32: train_family (below) of `basic` (aed, focus stem, 10
+    channels) on phase 31's EV blobs and of `yolox_taf_bfm` (CSPDarknet,
+    bfm stem) on phase 28's TAF blobs, batch 64, full GEN1 width, beside
+    phase 17's gen1_train."""
     for exp_type, data_path, bins in (("basic", ev_dir, 5),
                                       ("yolox_taf_bfm", data["taf_dir"], K)):
-        cfg = train.make_config(
-            exp_type, dataset="gen1", batch_size=TREE_BATCH,
-            data_path=data_path, bbox_path=data["tree"]["labels"],
-            log_path=str(WORK / "log"), exp_name=f"gen1_{exp_type}",
-            event_volume_bins=bins, max_epoch_to_stop=1,
-            reduce_evaluate=False)
-        for fn in counters.values():
-            fn.launches = 0
-        trainer = train.Trainer(cfg, device=dev)
-        trainer.train()
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
-        if any(launches.values()):
-            raise SystemExit(f"{exp_type}: the Trainer launched a kernel: "
-                             f"{launches}")
-        hist = trainer.history
-        if len(hist) != 1 or hist[0]["steps"] < 3 or "val" not in hist[0]:
-            raise SystemExit(f"{exp_type}: Trainer.train ran {hist}")
-        h = hist[0]
-        losses = [v for lo in h["losses"] for v in lo.values()]
-        if not (all(np.isfinite(losses))
-                and all(np.isfinite(h["val"]["stats"]))):
-            raise SystemExit(f"{exp_type}: non-finite loss or COCO stat: "
-                             f"{h}")
-        if not (Path(trainer.ckpt_dir) / "best_epoch").exists():
-            raise SystemExit(f"{exp_type}: Trainer.train wrote no best_epoch")
-        log(f"{exp_type} ({type(trainer.model.backbone).__name__}, "
-            f"{cfg.input_channels} channels) on {card}: {h['steps']} steps "
-            f"at batch {TREE_BATCH}, {h['wall_s'] / h['steps'] * 1e3:.1f} "
-            f"ms/step, the loop waiting for the loader "
-            f"{h['loader_wait_s'] / h['wall_s']:.1%} of it; total_loss by "
-            f"step " + ", ".join(f"{lo['total_loss']:.4f}"
-                                 for lo in h["losses"])
-            + f"; validation {h['val']['loop_s']:.2f} s detecting, COCO "
-            f"stats " + ", ".join(f"{v:.4f}" for v in h["val"]["stats"])
-            + f"; phase 17's gen1_train {synthetic_train['ms_per_step']:.1f} "
-            f"ms/step")
-        del trainer
-        torch.cuda.empty_cache()
+        train_family(train, exp_type, data_path, data["tree"]["labels"],
+                     bins, counters, dev, card, card_name)
+    log(f"phase 17's gen1_train (device-resident batches) "
+        f"{synthetic_train['ms_per_step']:.1f} ms/step")
 
 
 FOUR_WAYS = {"plain": {}, "remat": dict(remat=True), "p64": dict(p64=True),
@@ -3045,6 +3029,284 @@ def run_yolox_path(pipeline, build_detector, counters, windows, dev, card):
                              label="yolox path")
     check_small_against_cpu(pipeline, dev, family="yolox")
     return launches
+
+
+# phase 35's blob geometry: GEN1's sensor resized up to the yolov3
+# config's square input (train/config.py: make_config)
+YOLOV3_SIZE = (640, 640)
+# phase 36's exp types on EV blobs of 5 bins
+RECURRENT_RUNS = ("red", "convlstm", "recconv")
+
+
+def train_family(train, exp_type, data_path, labels, bins, counters, dev,
+                 card, card_name, batch=TREE_BATCH):
+    """Trainer.train() of `exp_type` at `batch` for one epoch with
+    validation, its config's geometry and widths, bf16 over f32 masters.
+    Holds: at least 3 steps, every loss and COCO stat finite, best_epoch
+    written, no kernel launched. Then counts the FLOPs of one more train
+    step (utils/profiling.flops_report, as phase 17 counts them), and
+    runs Trainer.test() of a fresh Trainer on best_epoch with the val
+    split as its test split (phase 28's links): its stats within 1e-6 of
+    the epoch's validation. Returns the run's numbers."""
+    from frlw_evd_tpu_torch.models.yolov3 import gt_creator
+    from frlw_evd_tpu_torch.utils.profiling import flops_report
+
+    cfg = train.make_config(
+        exp_type, dataset="gen1", batch_size=batch, data_path=data_path,
+        bbox_path=labels, log_path=str(WORK / "log"),
+        exp_name=f"gen1_{exp_type}", event_volume_bins=bins,
+        max_epoch_to_stop=1, reduce_evaluate=False)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train.Trainer(cfg, device=dev)
+    trainer.train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise SystemExit(f"{exp_type}: the Trainer launched a kernel: "
+                         f"{launches}")
+    hist = trainer.history
+    if len(hist) != 1 or hist[0]["steps"] < 3 or "val" not in hist[0]:
+        raise SystemExit(f"{exp_type}: Trainer.train ran {hist}")
+    h = hist[0]
+    losses = [v for lo in h["losses"] for v in lo.values()]
+    if not (all(np.isfinite(losses)) and all(np.isfinite(h["val"]["stats"]))):
+        raise SystemExit(f"{exp_type}: non-finite loss or COCO stat: {h}")
+    if not (Path(trainer.ckpt_dir) / "best_epoch").exists():
+        raise SystemExit(f"{exp_type}: Trainer.train wrote no best_epoch")
+    imgs, targets = next(iter(trainer.train_loader))[:2]
+    if cfg.family == "yolov3":
+        targets = torch.from_numpy(gt_creator(cfg.img_size[0], cfg.strides,
+                                              targets.numpy()))
+    flops = flops_report(trainer.train_step, trainer.state, imgs, targets,
+                         trainer.generator)["flops"]
+    ms = h["wall_s"] / h["steps"] * 1e3
+    mfu = flops / (ms / 1e3) / bf16_tensor_flops(card_name)
+    gt_s = h.get("gt_creator_s")
+    log(f"{exp_type} ({type(trainer.model).__name__}, "
+        f"{cfg.img_size[0]}x{cfg.img_size[1]}, {cfg.input_channels} "
+        f"channels) on {card}: {h['steps']} steps at batch {batch}, "
+        f"{ms:.1f} ms/step, the loop waiting for the loader "
+        f"{h['loader_wait_s'] / h['wall_s']:.1%} of it"
+        + (f" (gt_creator {gt_s / h['steps'] * 1e3:.1f} ms a step of that)"
+           if gt_s is not None else "")
+        + f", peak memory {peak / 2**30:.2f} GiB, {flops / 1e12:.3f} "
+        f"TFLOP/step counted, MFU {mfu:.2%}; total_loss by step "
+        + ", ".join(f"{lo['total_loss']:.4f}" for lo in h["losses"])
+        + f"; validation {h['val']['loop_s']:.2f} s detecting, COCO stats "
+        + ", ".join(f"{v:.4f}" for v in h["val"]["stats"]))
+    out = dict(batch=batch, steps=h["steps"], ms_per_step=ms,
+               loader_wait=h["loader_wait_s"] / h["wall_s"],
+               peak_gib=peak / 2**30, tflop_per_step=flops / 1e12, mfu=mfu)
+    del trainer
+    torch.cuda.empty_cache()
+    for root in (Path(data_path), Path(labels)):
+        if not (root / "test").is_symlink():
+            shutil.rmtree(root / "test", ignore_errors=True)
+            (root / "test").symlink_to("val")
+    t0 = time.perf_counter()
+    tested = np.array(train.Trainer(
+        dataclasses.replace(cfg, resume_exp=cfg.exp_name), device=dev).test())
+    diff = np.abs(tested - np.array(h["val"]["stats"])).max()
+    log(f"{exp_type}: Trainer.test() on best_epoch in "
+        f"{time.perf_counter() - t0:.1f} s, COCO stats within {diff:.1e} of "
+        f"the epoch's validation")
+    if not diff <= 1e-6:
+        raise SystemExit(f"{exp_type}: Trainer.test() stats {tested} against "
+                         f"the validation's {h['val']['stats']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_yolov3_trainer(train, data, counters, dev, card, card_name):
+    """Phase 35: TAF blobs of phase 28's tree (train and val) generated on
+    the card at YOLOV3_SIZE, then train_family of yolov3_taf_bfm at
+    TREE_BATCH; where a batch does not fit in the card's memory, at half
+    of it, until one does (each try printed)."""
+    from frlw_evd_tpu_torch.tools import generate_common
+    from frlw_evd_tpu_torch.tools.generate_taf import generate_taf
+
+    generate_common.GEOMETRY["gen1_640"] = dict(shape=GEN1_SENSOR,
+                                                target_shape=YOLOV3_SIZE)
+    t0 = time.perf_counter()
+    gen = generate_taf(data["tree"]["events"], data["tree"]["labels"],
+                       str(WORK / "gen_640"), "gen1_640", dev,
+                       splits=("train", "val"))
+    log(f"generate_taf at {YOLOV3_SIZE[0]}x{YOLOV3_SIZE[1]} on {card}: "
+        f"{gen['blobs']} blob pairs in {time.perf_counter() - t0:.1f} s")
+    batch = TREE_BATCH
+    while True:
+        try:
+            return train_family(train, "yolov3_taf_bfm",
+                                str(WORK / "gen_640" / "taf"),
+                                data["tree"]["labels"], K, counters, dev,
+                                card, card_name, batch=batch)
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 8:
+                raise
+        # outside the handler, so that the failed run's frames are gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"yolov3_taf_bfm at batch {batch}: out of the card's memory; "
+            f"trying {batch // 2}")
+        batch //= 2
+
+
+def run_recurrent_trainers(train, data, ev_dir, counters, dev, card,
+                           card_name):
+    """Phase 36: train_family of red, convlstm and recconv on phase 31's EV
+    blobs at GEN1, batch TREE_BATCH."""
+    return {exp_type: train_family(train, exp_type, ev_dir,
+                                   data["tree"]["labels"], 5, counters, dev,
+                                   card, card_name)
+            for exp_type in RECURRENT_RUNS}
+
+
+FAMILY_SMALL = {"yolov3": (64, 64), "yolov3_taf_bfm": (64, 64),
+                "red": (64, 96), "convlstm": (64, 96), "recconv": (64, 96)}
+# Darknet-53's running variances reach 3 (l5_conv, 1024 channels on 2x2
+# maps, 52 convolutions deep) and read 9.3e-6 apart on an H100 and the CPU
+# in f32: the yolov3 families' statistics are held within 1e-5 of
+# max(|CPU value|, 1), the others within 1e-5 absolute
+STATS_RELATIVE = ("yolov3", "yolov3_taf_bfm")
+
+
+def _detectable_(model):
+    """Boxes from random weights that the eval steps keep, one per cell of
+    the finest level and apart from each other, so that NMS suppresses
+    none and no near tie of scores decides which box survives (each box's
+    score differs between the card and the CPU by up to 6e-5 at full
+    width): the YOLOv3 head's anchor 0 and the YOLOX head's objectness on
+    level 0 only, objectness bias 3.0 (the others keep the focal prior,
+    under conf 0.3), that level's box regressions scaled by 0.1 (YOLOX's
+    size biases 1, so its squared decode gives boxes of about a stride);
+    RED's
+    first prior of level 0 only (every other prior's background bias +10,
+    its scores under conf 0.01)."""
+    with torch.no_grad():
+        head = getattr(model, "head", None)
+        if head is not None and hasattr(head, "head_det_1"):
+            det = head.head_det_1
+            reg = head.num_anchors * (det.out_channels // head.num_anchors
+                                      - 4)
+            det.bias[0] = 3.0
+            det.weight[reg:reg + 4] *= 0.1
+        elif head is not None:
+            head.obj_preds_0.bias.fill_(3.0)
+            head.reg_preds_0.weight.mul_(0.1)
+            head.reg_preds_0.bias.copy_(torch.tensor([0.0, 0.0, 1.0, 1.0]))
+        else:
+            nc = model.predictor.num_classes
+            for k in range(5):
+                cls = getattr(model.predictor, f"cls_{k}")
+                cls.bias[(1 if k == 0 else 0) * nc::nc] = 10.0
+
+
+def family_small_step(train, exp_type, d, half=False):
+    """One train step and one eval step of `exp_type`'s Trainer on device
+    `d`: the Trainer's own model (seed 0, full width, dropout 0) and steps
+    on small_train_batch at FAMILY_SMALL's size (yolov3: gt_creator's
+    targets). First the eval step's rows before its threshold and NMS
+    (eval_step.decoded: every anchor or prior of every level) on the
+    seeded weights; then _detectable_, the train step and the eval step.
+    build(1)'s warm-up lr is 0 at the first update, so the eval step sees
+    the step's weights and statistics. Returns (losses, running
+    statistics, decoded rows, detections per image) on the host."""
+    from frlw_evd_tpu_torch.models.postprocess import finalize_detections
+    from frlw_evd_tpu_torch.models.stems import Dropout
+    from frlw_evd_tpu_torch.models.yolov3 import gt_creator
+
+    h, w = FAMILY_SMALL[exp_type]
+    cfg = train.make_config(
+        exp_type, dataset="gen1", batch_size=4, event_volume_bins=K,
+        img_size_override=(h, w), half_precision=half,
+        log_path=str(WORK / "family_small"), exp_name=exp_type)
+    trainer = train.Trainer(cfg, device=d)
+    for mod in trainer.model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+    trainer.build(1)
+    imgs, labels = small_train_batch(np.random.default_rng(0), h, w)
+    if cfg.input_channels != imgs.shape[-1]:
+        raise SystemExit(f"{exp_type}: {cfg.input_channels} input channels")
+    targets = (gt_creator(h, cfg.strides, labels)
+               if cfg.family == "yolov3" else labels)
+    imgs = torch.from_numpy(imgs)
+    rows = trainer.eval_step.decoded(trainer.state, imgs).double().cpu()
+    _detectable_(trainer.model)
+    losses = trainer.train_step(trainer.state, imgs,
+                                torch.from_numpy(targets), trainer.generator)
+    dets = finalize_detections(*trainer.eval_step(trainer.state, imgs))
+    stats = {k: v.double().cpu()
+             for k, v in trainer.model.state_dict().items()
+             if k.endswith(STATS)}
+    return {k: v.item() for k, v in losses.items()}, stats, rows, dets
+
+
+def same_rows(label, got, want):
+    """Decoded rows [cx, cy, w, h, conf, cls / conf...] of every anchor or
+    prior, in order, card against CPU: the boxes within DET_GATES' box
+    atol + rtol, the scores within its score gate. Returns the largest box
+    and score errors."""
+    box_err = (got[..., :4] - want[..., :4]).abs()
+    score_err = (got[..., 4:] - want[..., 4:]).abs().max().item()
+    limit = DET_GATES["box_atol"] + DET_GATES["box_rtol"] * want[..., :4].abs()
+    if got.shape != want.shape or (box_err > limit).any() \
+            or score_err > DET_GATES["score"]:
+        raise SystemExit(
+            f"{label}: card and CPU disagree before NMS: shapes "
+            f"{tuple(got.shape)} / {tuple(want.shape)}, box err "
+            f"{box_err.max().item()}, score err {score_err}; {DET_GATES}")
+    return {"box": box_err.max().item(), "score": score_err}
+
+
+def check_families_against_cpu(train, dev):
+    """Phase 37: family_small_step of each exp type on the card and the
+    CPU in f32, TF32 off: the decoded rows of every level before NMS
+    (same_rows) and the detections after it (same_dets) by DET_GATES, the
+    losses within SMALL_TRAIN_GATES' rtol, the running statistics within
+    its 1e-5 (of max(|CPU value|, 1) for STATS_RELATIVE). Then red in bf16
+    on the card, its losses finite."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for exp_type in FAMILY_SMALL:
+            (c_loss, c_sd, c_rows, c_dt), (g_loss, g_sd, g_rows, g_dt) = (
+                family_small_step(train, exp_type, d) for d in ("cpu", dev))
+            loss_err = max(abs(g_loss[k] / v - 1) for k, v in c_loss.items()
+                           if v != 0)
+            relative = exp_type in STATS_RELATIVE
+            stat_err = max(((g_sd[k] - v).abs()
+                            / (v.abs().clamp(min=1.0) if relative else 1.0)
+                            ).max().item() for k, v in c_sd.items())
+            row_err = same_rows(f"{exp_type} small eval step", g_rows,
+                                c_rows)
+            det_err = same_dets(f"{exp_type} small eval step", g_dt, c_dt)
+            log(f"{exp_type} small step, card vs CPU: losses rel err "
+                f"{loss_err:.2e} (total_loss {c_loss['total_loss']:.6f}), "
+                f"BatchNorm statistics err {stat_err:.2e} "
+                f"({'of max(|value|, 1)' if relative else 'absolute'}) over "
+                f"{len(c_sd)} buffers, decoded rows before NMS "
+                f"{tuple(c_rows.shape)} within {row_err}, eval step "
+                f"{sum(len(x) for x in c_dt)} rows within {det_err}")
+            if (loss_err > SMALL_TRAIN_GATES["losses"]
+                    or stat_err > SMALL_TRAIN_GATES["statistics"]):
+                raise SystemExit(f"{exp_type} small step: card and CPU "
+                                 f"disagree: losses {g_loss} / {c_loss}, "
+                                 f"statistics err {stat_err}")
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    losses, _, _, _ = family_small_step(train, "red", dev, half=True)
+    log(f"red small step in bf16 on the card: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in losses.items()))
+    if not all(np.isfinite(list(losses.values()))):
+        raise SystemExit(f"red bf16 small step: non-finite losses {losses}")
 
 
 def main() -> int:
@@ -3194,8 +3456,7 @@ def main() -> int:
                    counters, dev, card)
     phase(32, "Trainer: basic on EV blobs, yolox_taf_bfm",
           run_trainer_families, train, data, ev_dir, counters, dev, card,
-          synthetic_train["gen1_train"])
-    shutil.rmtree(WORK, ignore_errors=True)
+          name, synthetic_train["gen1_train"])
     torch.cuda.empty_cache()
     phase(33, "gen1_train four ways", run_train_four_ways, train,
           build_detector, counters, dev, card, name)
@@ -3206,6 +3467,14 @@ def main() -> int:
                                   pipeline, build_detector, counters,
                                   windows, dev, card)
     del windows
+    torch.cuda.empty_cache()
+    phase(35, "Trainer: yolov3_taf_bfm at 640x640", run_yolov3_trainer,
+          train, data, counters, dev, card, name)
+    phase(36, "Trainer: red, convlstm, recconv", run_recurrent_trainers,
+          train, data, ev_dir, counters, dev, card, name)
+    phase(37, "five families small, card vs CPU",
+          check_families_against_cpu, train, dev)
+    shutil.rmtree(WORK, ignore_errors=True)
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
     # or at all, the first being the one at the entry's shape whose

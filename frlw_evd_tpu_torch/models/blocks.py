@@ -49,6 +49,17 @@ class PatchFusedConv2d(nn.Module):
         return F.conv2d(x, w6, stride=2, padding=2)
 
 
+class PromotingConv2d(nn.Conv2d):
+    """nn.Conv2d that computes in the wider of its input's and its
+    weight's dtypes, as flax's nn.Conv promotes them (a bf16 kernel on an
+    f32 input gives an f32 output); torch's conv refuses mixed dtypes."""
+
+    def forward(self, x):
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
 MOMENTUM = 0.9          # flax's momentum (torch's 0.1), blocks.py:200
 
 

@@ -5,9 +5,9 @@ JAX package).
 Replaces the reference's flat Settings objects + hard-coded exp-type if/elif
 dispatch (settings.py, train.py:37-70) with one dataclass, while keeping the
 same recipe surface: exp types, dataset geometry, LR law, epochs. The
-port's build_detector builds the 'aed' family only; the JAX-only fields
-(data_axis, remat, patchified, rng_impl) are kept so that one config
-reads the same in both packages.
+port's Trainer builds every family here but the experimental stems
+(taf_swin, taf_corr, taf_syn); the JAX-only fields (data_axis, rng_impl)
+are kept so that one config reads the same in both packages.
 """
 
 from __future__ import annotations

@@ -15,12 +15,14 @@ PyTorch runs eagerly, so there is no jit; a step updates its TrainState in
 place and returns the loss tensors without a host sync. With remat the
 differentiated forward runs under torch.utils.checkpoint (non-reentrant),
 the counterpart of jax.checkpoint; with patchify the step space-to-depths
-the volume once for a p64 stem. `Trainer` runs the experiment over the
-blob datasets: epochs of train steps fed two batches ahead from pinned
+the volume once for a p64 stem. The yolov3, red and memory (convlstm /
+recconv) families have their own steps (trainer.py:76-231): the yolov3
+step takes gt_creator's anchor targets in place of labels, red's SSD
+MultiBox step starts each batch from zero f32 carries, the memory steps
+from None carries. `Trainer` runs the experiment over the blob datasets
+for every family: epochs of train steps fed two batches ahead from pinned
 host memory, per-epoch validation with COCO stats, the last and the best
-checkpoint, resume and test, for the aed and yolox families. The yolov3 /
-red / memory families are not ported yet (ROADMAP A.13); the Trainer
-refuses them.
+checkpoint, resume and test.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -35,6 +38,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -42,9 +46,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..data import Loader, PropheseeDataset, PropheseeTafDataset
 from ..evaluate import Evaluator, Recorder
 from ..models.blocks import BatchNorm2d, space_to_depth_patches
-from ..models.detector import (EventDetector, build_detector, detector_loss,
-                               eval_decode)
+from ..models.detector import (build_detector, build_memory_detector,
+                               detector_loss, eval_decode, init_parameters_)
 from ..models.postprocess import finalize_detections, postprocess_batch
+from ..models import red
+from ..models.yolov3 import (YOLOv3Detector, gt_creator, yolov3_eval_decode,
+                             yolov3_loss)
 from ..models.stems import Dropout
 from ..pipeline import resolve_device
 from .checkpoints import (load_checkpoint, save_checkpoint,
@@ -97,7 +104,7 @@ class TrainState:
     """The model (f32 masters and BatchNorm statistics), its optimiser,
     the lr schedule and the number of updates made (trainer.py:36-42)."""
     step: int
-    model: EventDetector
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Optional[Callable[[int], float]] = None
 
@@ -113,7 +120,7 @@ class TrainState:
         self.step += 1
 
 
-def create_train_state(model: EventDetector, tx: Tx, *,
+def create_train_state(model: nn.Module, tx: Tx, *,
                        device="cuda") -> TrainState:
     """Move `model` to `device` in f32 (channels_last on the card), in
     training mode, and build its optimiser (trainer.py:45-56). The model
@@ -137,10 +144,15 @@ def _compute_params(params: dict[str, torch.Tensor],
             for k, p in params.items()}
 
 
-def _forward(model: EventDetector, imgs, half_precision: bool):
-    """The head maps in f32, the network run on _compute_params."""
+def _apply(model: nn.Module, half_precision: bool, *args):
+    """model(*args) run on _compute_params."""
     params = _compute_params(dict(model.named_parameters()), half_precision)
-    return [o.float() for o in functional_call(model, params, (imgs,))]
+    return functional_call(model, params, args)
+
+
+def _forward(model: nn.Module, imgs, half_precision: bool):
+    """The head maps in f32, the network run on _compute_params."""
+    return [o.float() for o in _apply(model, half_precision, imgs)]
 
 
 # the outputs remat_policy "dots" keeps, as jax.checkpoint_policies.
@@ -229,17 +241,10 @@ def make_train_step(strides, num_classes: int, radius: float,
     if remat_policy not in (None, "dots"):
         raise ValueError(f"remat_policy must be None or 'dots', got "
                          f"{remat_policy!r}")
-    dev = resolve_device(device)
 
-    def train_step(state: TrainState, imgs, labels, generator):
-        model = state.model.train()
-        for mod in model.modules():
-            if isinstance(mod, Dropout):
-                mod.generator = generator
-        imgs = imgs.to(dev, torch.bfloat16 if half_precision else None)
+    def losses(model, imgs, labels, generator):
         if patchify:
             imgs = space_to_depth_patches(imgs)
-        state.optimizer.zero_grad(set_to_none=True)
         if remat:
             outs = checkpoint(_forward, model, imgs, half_precision,
                               use_reentrant=False,
@@ -247,8 +252,28 @@ def make_train_step(strides, num_classes: int, radius: float,
                                                          generator))
         else:
             outs = _forward(model, imgs, half_precision)
-        losses = detector_loss(outs, labels.to(dev), strides, num_classes,
-                               radius)
+        return detector_loss(outs, labels, strides, num_classes, radius)
+
+    return _train_step(losses, half_precision, device)
+
+
+def _train_step(losses_fn, half_precision: bool, device):
+    """train_step(state, imgs, targets, generator) -> losses around
+    losses_fn(model, imgs, targets, generator) -> the dict of losses: the
+    model in training mode with the stem's dropout drawing from
+    `generator`, imgs and targets moved to the device (imgs in bf16 under
+    half_precision), total_loss backpropagated to the f32 masters, one
+    optimiser update; the detached losses out."""
+    dev = resolve_device(device)
+
+    def train_step(state: TrainState, imgs, targets, generator):
+        model = state.model.train()
+        for mod in model.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = generator
+        imgs = imgs.to(dev, torch.bfloat16 if half_precision else None)
+        state.optimizer.zero_grad(set_to_none=True)
+        losses = losses_fn(model, imgs, targets.to(dev), generator)
         losses["total_loss"].backward()
         state.apply_gradients()
         return {k: v.detach() for k, v in losses.items()}
@@ -263,62 +288,242 @@ def make_eval_step(strides, max_detections: int = 200,
     the model in eval mode on _compute_params (the volume patchified first
     when `patchify`), f32 decode, then postprocess_batch with its defaults
     and `max_detections`."""
+    def decode(model, imgs):
+        if patchify:
+            imgs = space_to_depth_patches(imgs)
+        return eval_decode(_forward(model, imgs, half_precision), strides)
+
+    return _eval_step(decode, functools.partial(
+        postprocess_batch, max_detections=max_detections), half_precision,
+        device)
+
+
+def _eval_step(decode, select, half_precision: bool, device):
+    """eval_step(state, imgs) -> select(decode(model, imgs)) without
+    gradients, the model in eval mode, imgs on the device (bf16 under
+    half_precision): decode gives the rows of every anchor or prior,
+    select thresholds them and runs NMS. eval_step.decoded(state, imgs)
+    returns the rows before select."""
     dev = resolve_device(device)
 
     @torch.no_grad()
-    def eval_step(state: TrainState, imgs):
+    def decoded(state: TrainState, imgs):
         model = state.model.eval()
-        imgs = imgs.to(dev, torch.bfloat16 if half_precision else None)
-        if patchify:
-            imgs = space_to_depth_patches(imgs)
-        decoded = eval_decode(_forward(model, imgs, half_precision), strides)
-        return postprocess_batch(decoded, max_detections=max_detections)
+        return decode(model, imgs.to(dev, torch.bfloat16 if half_precision
+                                     else None))
 
+    def eval_step(state: TrainState, imgs):
+        return select(decoded(state, imgs))
+
+    eval_step.decoded = decoded
     return eval_step
+
+
+def make_yolov3_train_step(num_classes: int, img_size: int,
+                           half_precision: bool = False, *, device="cuda"):
+    """The yolov3 family's step (trainer.py:76-105): train_step(state,
+    imgs, gt_tensor, generator), gt_tensor gt_creator's (N, A, 7) anchor
+    targets; the head maps in f32 into yolov3_loss."""
+    def losses(model, imgs, gt_tensor, generator):
+        return yolov3_loss(_forward(model, imgs, half_precision), gt_tensor,
+                           num_classes, img_size)
+
+    return _train_step(losses, half_precision, device)
+
+
+def make_yolov3_eval_step(num_classes: int, img_size: int,
+                          max_detections: int = 200,
+                          half_precision: bool = False, *, device="cuda"):
+    """(state, imgs) -> (dets, keep) (trainer.py:108-125): the f32 head
+    maps through yolov3_eval_decode, then conf 0.3, NMS 0.5."""
+    def decode(model, imgs):
+        return yolov3_eval_decode(_forward(model, imgs, half_precision),
+                                  num_classes, img_size)
+
+    return _eval_step(decode, functools.partial(
+        postprocess_batch, conf_threshold=0.3, nms_threshold=0.5,
+        max_detections=max_detections), half_precision, device)
+
+
+def _red_maps(model, imgs, height, width, half_precision):
+    """RED on fresh zero f32 carries (train_memory_steps=1, as JAX's
+    steps at trainer.py:143, :174): the f32 (cls_logits, bbox_pred)."""
+    carries = model.init_carries(imgs.shape[0], height, width,
+                                 device=imgs.device)
+    _, (cls_logits, bbox_pred) = _apply(model, half_precision, carries, imgs)
+    return cls_logits.float(), bbox_pred.float()
+
+
+def make_red_train_step(height: int, width: int, priors,
+                        half_precision: bool = False, *, device="cuda"):
+    """The red family's step (trainer.py:128-161): the SSD MultiBox loss
+    over build_priors' `priors`, labels (N, G, 5) as the SimOTA step's."""
+    def losses(model, imgs, labels, generator):
+        return red.red_loss(*_red_maps(model, imgs, height, width,
+                                       half_precision),
+                            labels, height, width, priors)
+
+    return _train_step(losses, half_precision, device)
+
+
+def make_red_eval_step(height: int, width: int, priors,
+                       half_precision: bool = False, *, device="cuda"):
+    """(state, imgs) -> (dets, keep) (trainer.py:164-185): fresh carries,
+    red_eval_decode, then conf 0.01, NMS 0.45, 15 detections."""
+    def decode(model, imgs):
+        return red.red_eval_decode(
+            *_red_maps(model, imgs, height, width, half_precision), priors,
+            height, width)
+
+    return _eval_step(decode, functools.partial(
+        postprocess_batch, conf_threshold=red.CONFIDENCE_THRESHOLD,
+        nms_threshold=red.NMS_THRESHOLD, max_detections=red.TOPK),
+        half_precision, device)
+
+
+def _memory_maps(model, imgs, half_precision):
+    """A MemoryEventDetector from None carries: the f32 head maps."""
+    _, outs = _apply(model, half_precision, None, imgs)
+    return [o.float() for o in outs]
+
+
+def make_memory_train_step(strides, num_classes: int, radius: float,
+                           half_precision: bool = False, *, device="cuda"):
+    """The convlstm / recconv step (trainer.py:188-212): None carries every
+    batch, the SimOTA loss of the head maps."""
+    def losses(model, imgs, labels, generator):
+        return detector_loss(_memory_maps(model, imgs, half_precision),
+                             labels, strides, num_classes, radius)
+
+    return _train_step(losses, half_precision, device)
+
+
+def make_memory_eval_step(strides, max_detections: int = 200,
+                          half_precision: bool = False, *, device="cuda"):
+    """(state, imgs) -> (dets, keep) (trainer.py:215-228): None carries,
+    eval_decode, postprocess_batch's defaults."""
+    def decode(model, imgs):
+        return eval_decode(_memory_maps(model, imgs, half_precision),
+                           strides)
+
+    return _eval_step(decode, functools.partial(
+        postprocess_batch, max_detections=max_detections), half_precision,
+        device)
+
+
+def _family_key(cfg: ExpConfig) -> str:
+    """The row of _FAMILIES that builds cfg's model and steps."""
+    if cfg.memory:
+        return "memory"
+    return cfg.family if cfg.family in ("yolov3", "red") else "detector"
+
+
+def _yolov3_model(cfg: ExpConfig, generator) -> nn.Module:
+    model = YOLOv3Detector(cfg.num_classes, cfg.input_channels,
+                           use_bfm_stem=cfg.stem == "bfm", act=cfg.act)
+    init_parameters_(model, generator)
+    return model.train()
+
+
+def _yolov3_steps(cfg: ExpConfig, half: bool, dev):
+    size = cfg.img_size[0]
+    return (make_yolov3_train_step(cfg.num_classes, size, half, device=dev),
+            make_yolov3_eval_step(cfg.num_classes, size, half_precision=half,
+                                  device=dev))
+
+
+def _red_model(cfg: ExpConfig, generator) -> nn.Module:
+    model = red.REDDetector(cfg.num_classes, cfg.input_channels)
+    init_parameters_(model, generator)
+    return model.train()
+
+
+def _red_steps(cfg: ExpConfig, half: bool, dev):
+    h, w = cfg.img_size
+    priors = red.build_priors(h, w)
+    return (make_red_train_step(h, w, priors, half, device=dev),
+            make_red_eval_step(h, w, priors, half, device=dev))
+
+
+def _memory_model(cfg: ExpConfig, generator) -> nn.Module:
+    return build_memory_detector(
+        cfg.num_classes, cfg.memory, stem=cfg.stem, act=cfg.act,
+        strides=cfg.strides, in_channels=cfg.in_channels, depth=cfg.depth,
+        input_channels=cfg.input_channels, generator=generator, train=True)
+
+
+def _memory_steps(cfg: ExpConfig, half: bool, dev):
+    return (make_memory_train_step(cfg.strides, cfg.num_classes,
+                                   cfg.center_radius, half, device=dev),
+            make_memory_eval_step(cfg.strides, half_precision=half,
+                                  device=dev))
+
+
+def _detector_model(cfg: ExpConfig, generator) -> nn.Module:
+    stem = cfg.stem
+    if cfg.patchified:
+        patched = {"bfm": "bfm_p64", "focus": "focus_p64"}
+        if stem not in patched:
+            raise ValueError(f"patchified=True has no p64 variant of stem "
+                             f"{stem!r}")
+        stem = patched[stem]
+    return build_detector(
+        cfg.num_classes, family=cfg.family, stem=stem, act=cfg.act,
+        strides=cfg.strides, in_channels=cfg.in_channels, depth=cfg.depth,
+        input_channels=cfg.input_channels, generator=generator, train=True)
+
+
+def _detector_steps(cfg: ExpConfig, half: bool, dev):
+    return (make_train_step(cfg.strides, cfg.num_classes, cfg.center_radius,
+                            half, remat=cfg.remat, patchify=cfg.patchified,
+                            device=dev),
+            make_eval_step(cfg.strides, half_precision=half,
+                           patchify=cfg.patchified, device=dev))
+
+
+# The model's builder (JAX trainer.py:329-357) and the steps' maker (JAX
+# :445-470) of each family: aed / yolox are "detector", convlstm / recconv
+# "memory".
+_FAMILIES = {"yolov3": (_yolov3_model, _yolov3_steps),
+             "red": (_red_model, _red_steps),
+             "memory": (_memory_model, _memory_steps),
+             "detector": (_detector_model, _detector_steps)}
 
 
 class Trainer:
     """End-to-end experiment runner (trainer.py:318-645, reference
     basicExp) on `device` (default "cuda", which raises without a card).
 
-    The model is build_detector's for cfg's family (aed or yolox), stem,
-    widths and input channels, its weights from torch seed cfg.seed; with
-    cfg.patchified the stem is its p64 variant (bfm → bfm_p64, focus →
-    focus_p64) and both steps patchify the volume; cfg.remat makes the
-    train step rematerialise its forward (full remat, as JAX's Trainer
-    asks). A caller may replace `self.model` before `build`. The dropout
-    masks come from a torch.Generator seeded cfg.seed + 1. Each
-    `train_epoch` appends to `history` its epoch, per-step losses, wall
-    seconds (ending in the host read of the losses) and the seconds the
-    loop waited for the next batch; `_train_loop` adds the epoch's
-    validation under "val" (the stats, the detection loop's and the COCO
-    evaluation's seconds, also left in `last_eval` by each
-    `eval_epoch`)."""
+    The model is the one of cfg's family, as JAX's Trainer builds it
+    (trainer.py:329-357), its weights from torch seed cfg.seed:
+    build_detector's for aed and yolox (stem, widths, input channels);
+    YOLOv3Detector for yolov3, with the BFM stem when cfg.stem is "bfm"
+    (yolov3_taf_bfm); REDDetector for red; build_memory_detector's
+    MemoryEventDetector (hidden_dims cfg.in_channels, ReLU cells) for
+    cfg.memory. With cfg.patchified the stem is its p64 variant (bfm →
+    bfm_p64, focus → focus_p64) and both steps patchify the volume (aed
+    and yolox only); cfg.remat makes the train step rematerialise its
+    forward (full remat, as JAX's Trainer asks). A caller may replace
+    `self.model` before `build`. The dropout masks come from a
+    torch.Generator seeded cfg.seed + 1. Each `train_epoch` appends to
+    `history` its epoch, per-step losses, wall seconds (ending in the host
+    read of the losses), the seconds the loop waited for the next batch
+    and, for yolov3, the host seconds of gt_creator within that wait;
+    `_train_loop` adds the epoch's validation under "val" (the stats, the
+    detection loop's and the COCO evaluation's seconds, also left in
+    `last_eval` by each `eval_epoch`)."""
 
     def __init__(self, cfg: ExpConfig, *, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.patchified and (cfg.family in ("red", "yolov3")
-                               or cfg.memory):
+        family = _family_key(cfg)
+        if cfg.patchified and family != "detector":
             raise ValueError(
                 "patchified=True is only wired for the single-window "
                 "aed/yolox families (p64 stems)")
-        if cfg.family in ("yolov3", "red") or cfg.memory:
-            raise NotImplementedError(
-                f"the {cfg.memory or cfg.family} family is not ported yet "
-                f"(ROADMAP A.13)")
-        stem = cfg.stem
-        if cfg.patchified:
-            patched = {"bfm": "bfm_p64", "focus": "focus_p64"}
-            if stem not in patched:
-                raise ValueError(
-                    f"patchified=True has no p64 variant of stem {stem!r}")
-            stem = patched[stem]
-        self.model = build_detector(
-            cfg.num_classes, family=cfg.family, stem=stem, act=cfg.act,
-            strides=cfg.strides, in_channels=cfg.in_channels,
-            depth=cfg.depth, input_channels=cfg.input_channels,
-            generator=torch.Generator().manual_seed(cfg.seed), train=True)
+        build_model, _ = _FAMILIES[family]
+        self.model = build_model(cfg,
+                                 torch.Generator().manual_seed(cfg.seed))
         self.exp_dir = os.path.join(
             cfg.log_path, cfg.exp_name or cfg.resume_exp or cfg.exp_type)
         self.ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
@@ -378,13 +583,9 @@ class Trainer:
             cfg.warmup_epochs * iters, cfg.warmup_lr)
         self.state = create_train_state(self.model, adam(self.schedule),
                                         device=self.device)
-        self.train_step = make_train_step(
-            cfg.strides, cfg.num_classes, cfg.center_radius,
-            cfg.half_precision, remat=cfg.remat, patchify=cfg.patchified,
-            device=self.device)
-        self.eval_step = make_eval_step(
-            cfg.strides, half_precision=cfg.half_precision,
-            patchify=cfg.patchified, device=self.device)
+        _, make_steps = _FAMILIES[_family_key(cfg)]
+        self.train_step, self.eval_step = make_steps(
+            cfg, cfg.half_precision, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
         self.ema_params = (ema_init(dict(self.model.named_parameters()))
@@ -414,12 +615,25 @@ class Trainer:
 
     # -- loops -------------------------------------------------------------
     def _prefetched_batches(self, lookahead: int = 2):
-        """(imgs, labels) on the device, their copies dispatched
+        """(imgs, targets) on the device, their copies dispatched
         `lookahead` batches ahead of the consuming step: the loader's
         batches are page-locked on the card, so each copy is
-        non_blocking and the host goes on to the next batch."""
+        non_blocking and the host goes on to the next batch. For yolov3
+        the targets are gt_creator's anchor tensor, made on the host from
+        the labels (trainer.py:494-503) into page-locked memory on the
+        card; its seconds add up in self._gt_s."""
+        cfg = self.cfg
+        pin = self.device.type == "cuda"
+
         def put(item):
             imgs, labels = item[0], item[1]
+            if cfg.family == "yolov3":
+                t0 = time.perf_counter()
+                labels = torch.from_numpy(gt_creator(
+                    cfg.img_size[0], cfg.strides, labels.numpy()))
+                if pin:
+                    labels = labels.pin_memory()
+                self._gt_s += time.perf_counter() - t0
             return (imgs.to(self.device, non_blocking=True),
                     labels.to(self.device, non_blocking=True))
 
@@ -437,6 +651,7 @@ class Trainer:
         lr."""
         losses_acc = []
         wait = 0.0
+        self._gt_s = 0.0
         t_epoch = time.perf_counter()
         batches = self._prefetched_batches()
         while True:
@@ -462,7 +677,9 @@ class Trainer:
                        for i in range(len(losses_acc))],
             "steps": len(losses_acc),
             "wall_s": time.perf_counter() - t_epoch,
-            "loader_wait_s": wait})
+            "loader_wait_s": wait,
+            **({"gt_creator_s": self._gt_s}
+               if self.cfg.family == "yolov3" else {})})
         mean = {k: float(np.mean(v)) for k, v in table.items()}
         lr = float(self.schedule(self.state.step - 1))
         print(f"Epoch {self.epoch}: " +

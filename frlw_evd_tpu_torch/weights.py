@@ -6,6 +6,7 @@ state_dict key by joining it with dots and renaming the leaf:
   params      .../kernel (HWIO)   → .../weight (OIHW)
   params      bn/scale, bn/bias   → bn.weight, bn.bias
   batch_stats bn/mean, bn/var     → bn.running_mean, bn.running_var
+  (any BatchNorm: `bn`, `bn1`, `c1_bn`, `conv3_bn`, ...)
   params      WeightNorm v (HWIO) → weight_v (OIHW, torch weight_norm layout)
   params      WeightNorm g, bias  → weight_g, bias
 
@@ -17,6 +18,8 @@ inverse key map, in the (collection, path) form that the JAX package's
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -24,6 +27,8 @@ from torch import nn
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "v": "weight_v", "g": "weight_g"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+# the port's BatchNorm module names: bn, bn<digits>, <anything>_bn
+_BN_NAME = re.compile(r"bn\d*|.+_bn")
 _FROM_TORCH = {("params", "weight_v"): "v", ("params", "weight_g"): "g",
                ("params", "bias"): "bias",
                ("batch_stats", "running_mean"): "mean",
@@ -46,14 +51,18 @@ def state_dict_key(collection: str, path) -> str:
 
 def flax_path(key: str):
     """The port's state_dict key → (collection, flax path tuple), or None
-    for keys without a flax counterpart (BatchNorm's num_batches_tracked)."""
+    for keys without a flax counterpart (BatchNorm's num_batches_tracked).
+    A `weight` is a BatchNorm's scale when its module is named as the
+    port's BatchNorms are (`bn`, `bn1`, `c1_bn`, `conv3_bn`; _BN_NAME),
+    else a kernel."""
     *body, leaf = key.split(".")
     if leaf == "num_batches_tracked":
         return None
     if leaf in ("running_mean", "running_var"):
         return "batch_stats", (*body, _FROM_TORCH[("batch_stats", leaf)])
     if leaf == "weight":
-        return "params", (*body, "scale" if body[-1] == "bn" else "kernel")
+        return "params", (*body, "scale" if _BN_NAME.fullmatch(body[-1])
+                          else "kernel")
     return "params", (*body, _FROM_TORCH[("params", leaf)])
 
 

@@ -12,8 +12,8 @@ each window's detections, as the Evaluator holds them, within 1e-4 of
 JAX's (measured about 1e-5: f32 convolutions in another order); the COCO
 stats within 1e-3; and the two Evaluators fed the port's detections within
 1e-12. Also: seq-NMS alike, finalize_detections, one train epoch with
-checkpoint resume and the EMA, the backbone part, the refusals and the
-device rule.
+checkpoint resume and the EMA, the backbone part, the model of each
+family, the refusals and the device rule.
 """
 
 from __future__ import annotations
@@ -267,14 +267,22 @@ def test_train_epoch_and_resume(tree, tmp_path, use_ema):
         torch.testing.assert_close(v, want[k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("family", "yolov3", "A.13"), ("family", "red", "A.13"),
-    ("memory", "convlstm", "A.13")])
-def test_trainer_refuses_unported(tree, tmp_path, field, value, item):
+@pytest.mark.parametrize("field,value,model", [
+    ("family", "yolov3", "YOLOv3Detector"), ("family", "red", "REDDetector"),
+    ("memory", "convlstm", "MemoryEventDetector")])
+def test_trainer_builds_the_family(tree, tmp_path, field, value, model):
+    """The Trainer builds the model of the config's family (JAX
+    trainer.py:329-357): the yolov3 detector with the BFM stem for stem
+    bfm, RED, the memory detector with ConvLSTM cells over in_channels."""
     cfg = make_config("taf_bfm", **_cfg_kw(tree, tmp_path))
     setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cfg, device="cpu")
+    built = Trainer(cfg, device="cpu").model
+    assert type(built).__name__ == model
+    assert built.training
+    if value == "yolov3":
+        assert type(built.backbone.layer_1).__name__ == "BinsFusionModule"
+    if value == "convlstm":
+        assert built.memory.lstms_2.hidden_dim == cfg.in_channels[2]
 
 
 def test_trainer_asks_for_the_card(tree, tmp_path, monkeypatch):
