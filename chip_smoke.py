@@ -204,7 +204,26 @@ Phases (any failure exits non-zero; no phase catches and continues):
      of every level before NMS and its detections after it by DET_GATES,
      losses within rtol 2e-4, BatchNorm statistics within 1e-5 (the
      yolov3 families' within 1e-5 of max(|value|, 1)); then one bf16 red
-     step on the card, its losses finite.
+     step on the card, its losses finite;
+ 38. GEN1 serving with the merged head (head_merged) through
+     make_pipeline_kernel, B = 128, E = 16384, phase 22's AED: bf16 maps
+     within relative L2 1e-3 of the canonical head's on the same weights
+     (and a planted BatchNorm slice fault beyond it);
+     int8 calibrated on the merged model (the canonical site keys), the
+     towers served as one Cout-512 site and one site a group a level
+     (int8_conv2d launched 58 times a window where the canonical path
+     launches 61), every site within relative L2 0.04 of its bf16 conv,
+     each merged launch bit for bit its twin, head maps within 0.08;
+     windows/s of both heads in turns, bf16 and int8; then the `taf` stem
+     served as phase 4 (B1 and B2 on every window);
+ 39. Trainer.train() of taf_swin, taf_corr and taf_syn on phase 28's TAF
+     blobs, batch 64 (halved until it fits), held and printed as phases
+     35 and 36; then gen1_train with the merged and the canonical head in
+     turns through train.run_train: ms/step, peak memory, no kernel;
+ 40. card against CPU, small, f32 with TF32 off: phase 37's check of
+     taf_swin, taf_corr and taf_syn; phase 19's train-step check of the
+     small AED with the taf stem, the taf_3d stem and the merged head;
+     MBV2CA's logits and one train step.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -1282,7 +1301,10 @@ def run_train_config(train, build_detector, counters, config, dev, card,
 
 LAMDAS = (0.00001, 0.0000025, 0.000001)    # the SAE generator's
 SMALL_TRAIN_GATES = {"losses": 2e-4, "statistics": 1e-5, "gradients": 1e-6,
-                     "parameters": 1e-6}
+                     "parameters": 1e-6, "residue": 1e-12}
+# a reference gradient leaf below this share of the largest leaf's
+# magnitude is 0 in exact arithmetic (small_train_errors)
+GRAD_FLOOR = 1e-12
 STATS = ("running_mean", "running_var")
 
 
@@ -1299,14 +1321,21 @@ def small_train_batch(rng, H=64, W=96):
     return imgs, labels
 
 
-def small_sgd_step(train, build_detector, device, dtype, imgs, labels):
-    """One SGD(1e-2) step of the seeded small AED (32 wide, dropout 0) in
-    `dtype` on `device`: (losses, gradients, float state after), as f64 on
-    the CPU."""
-    model = build_detector(2, stem="bfm", train=True, dropout_rate=0.0,
+def small_sgd_step(train, build_detector, device, dtype, imgs, labels,
+                   **build_kw):
+    """One SGD(1e-2) step of the seeded small AED (32 wide, stem bfm or
+    build_kw's, every dropout 0) in `dtype` on `device`: (losses,
+    gradients, float state after), as f64 on the CPU."""
+    from frlw_evd_tpu_torch.models.blocks import Dropout
+
+    model = build_detector(2, **{"stem": "bfm", **build_kw}, train=True,
+                           dropout_rate=0.0,
                            generator=torch.Generator().manual_seed(0),
                            in_channels=(32, 32, 32), stem_out_channels=16,
                            head_width=32)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
     if dtype == torch.float32:
         state = train.create_train_state(model, train.sgd(1e-2),
                                          device=device)
@@ -1323,13 +1352,16 @@ def small_sgd_step(train, build_detector, device, dtype, imgs, labels):
              if v.is_floating_point()})
 
 
-def small_train_errors(train, build_detector, dev) -> dict:
-    """small_sgd_step on `dev` against the CPU, TF32 off meanwhile: in f32
-    the losses' largest relative error and the running statistics' largest
-    absolute error; with the network in f64 the gradients' error over each
-    leaf's largest magnitude and the parameters' absolute error after the
-    step. Held to SMALL_TRAIN_GATES, the gates of
-    tests/test_torch_port_train.py."""
+def small_train_errors(train, build_detector, dev, **build_kw) -> dict:
+    """small_sgd_step (of build_kw's model) on `dev` against the CPU, TF32
+    off meanwhile: in f32 the losses' largest relative error and the
+    running statistics' largest absolute error; with the network in f64
+    the gradients' error over each leaf's largest magnitude, the
+    parameters' absolute error after the step, and the "residue": the
+    error of the leaves whose reference is below GRAD_FLOOR of the largest
+    leaf, over the largest leaf's magnitude. Held to SMALL_TRAIN_GATES,
+    the gates of tests/test_torch_port_train.py (the residue's is
+    GRAD_FLOOR)."""
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -1337,20 +1369,31 @@ def small_train_errors(train, build_detector, dev) -> dict:
     try:
         imgs, labels = small_train_batch(np.random.default_rng(0))
         runs = {d: small_sgd_step(train, build_detector, d, torch.float32,
-                                  imgs, labels) for d in ("cpu", dev)}
+                                  imgs, labels, **build_kw)
+                for d in ("cpu", dev)}
         err = {"losses": max(abs(runs[dev][0][k] / v - 1)
                              for k, v in runs["cpu"][0].items()),
                "statistics": max((runs[dev][2][k] - v).abs().max().item()
                                  for k, v in runs["cpu"][2].items()
                                  if k.endswith(STATS))}
         runs = {d: small_sgd_step(train, build_detector, d, torch.float64,
-                                  imgs, labels) for d in ("cpu", dev)}
+                                  imgs, labels, **build_kw)
+                for d in ("cpu", dev)}
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    err["gradients"] = max((runs[dev][1][k] - g).abs().max().item()
-                           / max(g.abs().max().item(), 1e-12)
-                           for k, g in runs["cpu"][1].items())
+    # a leaf whose gradient is 0 in exact arithmetic (a conv bias that a
+    # training-mode BatchNorm follows: taf_3d's BaseConvs) holds rounding
+    # residue, 1e-15 of the largest leaf on the CPU, where the smallest
+    # other leaf reads 8e-7 of it: no relative error is defined there
+    top = max(g.abs().max().item() for g in runs["cpu"][1].values())
+    err["gradients"], err["residue"] = 0.0, 0.0
+    for k, g in runs["cpu"][1].items():
+        m, diff = g.abs().max().item(), (runs[dev][1][k] - g).abs().max()
+        if m > GRAD_FLOOR * top:
+            err["gradients"] = max(err["gradients"], diff.item() / m)
+        else:
+            err["residue"] = max(err["residue"], diff.item() / top)
     err["parameters"] = max((runs[dev][2][k] - v).abs().max().item()
                             for k, v in runs["cpu"][2].items()
                             if not k.endswith(STATS))
@@ -1363,7 +1406,8 @@ def check_small_train_against_cpu(train, build_detector, dev):
     log(f"small train step, card vs CPU: f32 losses rel err "
         f"{err['losses']:.2e}, running statistics err "
         f"{err['statistics']:.2e}; f64 network: gradients err "
-        f"{err['gradients']:.2e} of each leaf's largest, parameters after "
+        f"{err['gradients']:.2e} of each leaf's largest (residue "
+        f"{err['residue']:.2e} of the largest leaf's), parameters after "
         f"SGD err {err['parameters']:.2e}")
     if any(err[k] > gate for k, gate in SMALL_TRAIN_GATES.items()):
         raise SystemExit(f"small train step: card and CPU disagree beyond "
@@ -1503,10 +1547,8 @@ def int8_sites_on_card(quantize, shapes, rate, int8_ops, label, g,
         # the path's launch: an Int8Site, whose weight map is encoded once
         # (its dequant scale is scale * sx), held to the twin bit for bit
         # and timed
-        conv = torch.nn.Conv2d(cin, cout, k, s, (k - 1) // 2, bias=False,
-                               device="cuda")
-        site = quantize.Int8Site(conv, 1.0 / inv, wq.permute(0, 3, 1, 2),
-                                 scale)
+        site = quantize.Int8Site(wq.permute(0, 3, 1, 2), scale, 1.0 / inv,
+                                 s)
         if not torch.equal(site(x), quantize.int8_conv2d_plain(
                 x, wq, site.scale, site.inv, stride=s)):
             raise SystemExit(f"Int8Site {label} k{k} s{s} {cin}->{cout} "
@@ -1518,7 +1560,7 @@ def int8_sites_on_card(quantize, shapes, rate, int8_ops, label, g,
             site(x)
         host_us = (time.perf_counter() - t0) / 20 * 1e6
         torch.cuda.synchronize()
-        del conv, site
+        del site
         plain_ms = (time_ms(lambda: quantize.int8_conv2d_plain(
             x, wq, scale, inv, stride=s), n=2, warm=1) if time_twin else None)
         w_bf = torch.randn(cout, cin, k, k, device="cuda", generator=g).to(
@@ -3136,21 +3178,27 @@ def run_yolov3_trainer(train, data, counters, dev, card, card_name):
                        splits=("train", "val"))
     log(f"generate_taf at {YOLOV3_SIZE[0]}x{YOLOV3_SIZE[1]} on {card}: "
         f"{gen['blobs']} blob pairs in {time.perf_counter() - t0:.1f} s")
+    return train_family_that_fits(train, "yolov3_taf_bfm",
+                                  str(WORK / "gen_640" / "taf"),
+                                  data["tree"]["labels"], K, counters, dev,
+                                  card, card_name)
+
+
+def train_family_that_fits(*args):
+    """train_family(*args) at TREE_BATCH; where a batch does not fit in
+    the card's memory, at half of it, until one does (each try printed)."""
     batch = TREE_BATCH
     while True:
         try:
-            return train_family(train, "yolov3_taf_bfm",
-                                str(WORK / "gen_640" / "taf"),
-                                data["tree"]["labels"], K, counters, dev,
-                                card, card_name, batch=batch)
+            return train_family(*args, batch=batch)
         except torch.cuda.OutOfMemoryError:
             if batch <= 8:
                 raise
         # outside the handler, so that the failed run's frames are gone
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"yolov3_taf_bfm at batch {batch}: out of the card's memory; "
-            f"trying {batch // 2}")
+        log(f"{args[1]} at batch {batch}: out of the card's memory; trying "
+            f"{batch // 2}")
         batch //= 2
 
 
@@ -3165,7 +3213,12 @@ def run_recurrent_trainers(train, data, ev_dir, counters, dev, card,
 
 
 FAMILY_SMALL = {"yolov3": (64, 64), "yolov3_taf_bfm": (64, 64),
-                "red": (64, 96), "convlstm": (64, 96), "recconv": (64, 96)}
+                "red": (64, 96), "convlstm": (64, 96), "recconv": (64, 96),
+                "taf_swin": (64, 96), "taf_corr": (64, 96),
+                "taf_syn": (64, 96)}
+# the exp types that phases 37 and 40 hold card against CPU
+PR12_FAMILIES = ("yolov3", "yolov3_taf_bfm", "red", "convlstm", "recconv")
+NEW_FAMILIES = ("taf_swin", "taf_corr", "taf_syn")
 # Darknet-53's running variances reach 3 (l5_conv, 1024 channels on 2x2
 # maps, 52 convolutions deep) and read 9.3e-6 apart on an H100 and the CPU
 # in f32: the yolov3 families' statistics are held within 1e-5 of
@@ -3214,8 +3267,8 @@ def family_small_step(train, exp_type, d, half=False):
     build(1)'s warm-up lr is 0 at the first update, so the eval step sees
     the step's weights and statistics. Returns (losses, running
     statistics, decoded rows, detections per image) on the host."""
+    from frlw_evd_tpu_torch.models.blocks import Dropout
     from frlw_evd_tpu_torch.models.postprocess import finalize_detections
-    from frlw_evd_tpu_torch.models.stems import Dropout
     from frlw_evd_tpu_torch.models.yolov3 import gt_creator
 
     h, w = FAMILY_SMALL[exp_type]
@@ -3262,19 +3315,20 @@ def same_rows(label, got, want):
     return {"box": box_err.max().item(), "score": score_err}
 
 
-def check_families_against_cpu(train, dev):
-    """Phase 37: family_small_step of each exp type on the card and the
-    CPU in f32, TF32 off: the decoded rows of every level before NMS
-    (same_rows) and the detections after it (same_dets) by DET_GATES, the
-    losses within SMALL_TRAIN_GATES' rtol, the running statistics within
-    its 1e-5 (of max(|CPU value|, 1) for STATS_RELATIVE). Then red in bf16
-    on the card, its losses finite."""
+def check_families_against_cpu(train, dev, exp_types=PR12_FAMILIES):
+    """Phase 37 (and 40 with NEW_FAMILIES): family_small_step of each exp
+    type on the card and the CPU in f32, TF32 off: the decoded rows of
+    every level before NMS (same_rows) and the detections after it
+    (same_dets) by DET_GATES, the losses within SMALL_TRAIN_GATES' rtol,
+    the running statistics within its 1e-5 (of max(|CPU value|, 1) for
+    STATS_RELATIVE). Then, in phase 37, red in bf16 on the card, its
+    losses finite."""
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for exp_type in FAMILY_SMALL:
+        for exp_type in exp_types:
             (c_loss, c_sd, c_rows, c_dt), (g_loss, g_sd, g_rows, g_dt) = (
                 family_small_step(train, exp_type, d) for d in ("cpu", dev))
             loss_err = max(abs(g_loss[k] / v - 1) for k, v in c_loss.items()
@@ -3302,11 +3356,375 @@ def check_families_against_cpu(train, dev):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+    if "red" not in exp_types:
+        return
     losses, _, _, _ = family_small_step(train, "red", dev, half=True)
     log(f"red small step in bf16 on the card: " + ", ".join(
         f"{k} {v:.6f}" for k, v in losses.items()))
     if not all(np.isfinite(list(losses.values()))):
         raise SystemExit(f"red bf16 small step: non-finite losses {losses}")
+
+
+# phase 38's gate on the merged head's bf16 maps against the canonical
+# head's, relative L2 a level: the sound merged head read 2.9e-4 on an
+# H100 80GB HBM3 at 700 W (the merged BatchNorm runs in f32 on the conv's
+# bf16 output, the canonical one in bf16), and a planted slice fault (two
+# channels of one tower's layer-1 BatchNorm affine swapped,
+# planted_fault_rel) read 2.9e-3 to 2.1e-2 in f32 on the CPU, the least
+# at level 0's reg tower, the one that phase 38 plants and requires above
+# the gate
+MERGED_BF16_REL = 1e-3
+
+
+def merged_gen1_models(build_detector, pipeline):
+    """Phase 22's AED (int8_gen1_model) and a merged-head build carrying
+    the same state_dict, both f32 on the CPU."""
+    canon = int8_gen1_model(build_detector, pipeline)
+    merged = build_detector(2, stem="bfm", head_merged=True)
+    merged.load_state_dict(canon.state_dict())
+    return canon, merged
+
+
+def maps_rel_l2(a, b):
+    """Relative L2 of each level's head maps a against b."""
+    return [((x.double() - y.double()).norm() / y.double().norm()).item()
+            for x, y in zip(a, b)]
+
+
+def planted_fault_rel(merged, canon, vol):
+    """maps_rel_l2 of the merged head against the canonical one with a
+    slice fault planted in the merged model: channels 0 and 1 of level
+    0's reg tower layer-1 BatchNorm affine swapped (restored after)."""
+    bn = merged.head.reg_convs_0_1.bn
+    with torch.no_grad():
+        for t in (bn.weight, bn.bias):
+            t[[0, 1]] = t[[1, 0]].clone()
+        try:
+            with torch.inference_mode():
+                return maps_rel_l2(merged(vol), canon(vol))
+        finally:
+            for t in (bn.weight, bn.bias):
+                t[[0, 1]] = t[[1, 0]].clone()
+
+
+def merged_site_errors(quantize, model, vol, ctx):
+    """Each merged tower conv of `model` on the unquantized forward's
+    inputs: its int8 sites (ctx.merged) launched, the output held bit for
+    bit to int8_conv2d_plain on the same codes and halves, and its
+    relative L2 against the bf16 merged conv. Returns {(k, layer): rel}."""
+    (head, sites), = ctx.merged.values()
+    errs = {}
+
+    def compare(k, layer, h):
+        got = sites(k, layer, h)
+        own = sites.sites[k, layer]
+        parts = quantize.merged_parts(h, layer)[:len(own)]
+        want = torch.cat([quantize.int8_conv2d_plain(x, s.wq, s.scale, s.inv)
+                          for s, x in zip(own, parts)], dim=1)
+        if not torch.equal(got, want):
+            raise SystemExit(f"merged int8 site ({k}, {layer}): the kernel "
+                             f"and int8_conv2d_plain differ")
+        kernel = torch.cat([getattr(head, f"{b}_convs_{k}_{layer}").conv.weight
+                            for b in ("cls", "reg")])
+        ref = torch.nn.functional.conv2d(h, kernel.to(h.dtype), padding=1,
+                                         groups=2 if layer else 1).double()
+        errs[k, layer] = ((got.double() - ref).norm() / ref.norm()).item()
+        return None                      # the bf16 forward goes on
+
+    head.merged_hook = compare
+    try:
+        with torch.inference_mode():
+            model(vol)
+    finally:
+        head.merged_hook = None
+    return errs
+
+
+def merged_tower_sites(quantize, W, rate, card_name):
+    """int8_sites_on_card at the merged towers' site shapes at GEN1, B =
+    128: layer 0's Cout-2W site and layer 1's two W → W halves a level;
+    then the copy that makes each half a contiguous channels_last
+    activation (a strided channel slice of the 2W-channel input), timed
+    alone. Returns the sites' per-window row with the copies' ms."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    levels = [(GEN1_INPUT[0] // s, GEN1_INPUT[1] // s) for s in (8, 16, 32)]
+    shapes = Counter({(3, 1, W, 2 * W, h, w): 1 for h, w in levels})
+    shapes.update({(3, 1, W, W, h, w): 2 for h, w in levels})
+    row = int8_sites_on_card(quantize, shapes, rate,
+                             _rate(INT8_TENSOR_OPS_PER_S, card_name),
+                             "GEN1 merged towers", g, False)
+    copy_ms = 0.0
+    for h, w in levels:
+        x = torch.randn(B, 2 * W, h, w, device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for half in (x[:, :W], x[:, W:]):
+            copy_ms += time_ms(lambda: half.contiguous(
+                memory_format=torch.channels_last))
+    half_bytes = sum(2 * B * W * h * w * 2 * 2 for h, w in levels)
+    log(f"merged towers' layer-1 halves: copies {copy_ms:.3f} ms a window "
+        f"({half_bytes / 1e6:.0f} MB read and written; bound "
+        f"{half_bytes / rate * 1e3:.3f} ms)")
+    return dict(row, copy_ms=copy_ms)
+
+
+def run_merged_head_path(pipeline, quantize, build_detector, counters,
+                         windows, dev, card, rate, card_name):
+    """Phase 38: GEN1 serving with the merged head (bench.py --merged_head)
+    through make_pipeline_kernel, B = 128, E = 16384, AED 256 wide, stem
+    bfm, B1 + B2 on every window. bf16: MAIN_WINDOWS windows, the head
+    maps of the last within MERGED_BF16_REL of the canonical build's on
+    the same weights. int8: calibrated on the merged model (its scales
+    keyed as the canonical model's sites), then INT8_WINDOWS windows:
+    int8_conv2d launched (the canonical sites but the 12 tower convs, plus
+    1 + 2 a level) x (windows) times; every canonical site within relative
+    L2 0.04 of its bf16 conv and every merged site too (its launch held bit
+    for bit to its twin), the head maps within 0.08 of bf16's; windows/s
+    of the canonical and the merged build in turns, bf16 then int8 (the
+    merged calibration serving both). Then the `taf` stem (TemporalActive
+    Focus) served as phase 4. Last, merged_tower_sites. Returns (the
+    launch counts of each path, merged_tower_sites' row)."""
+    canon, merged = merged_gen1_models(build_detector, pipeline)
+    f32_state = {k: v.clone() for k, v in merged.state_dict().items()}
+    runs = {name: pipeline.make_pipeline_kernel(
+        m, GEN1_SENSOR, GEN1_INPUT, device=dev, dtype=torch.bfloat16)
+        for name, m in (("canonical", canon), ("merged", merged))}
+    by_path = {}
+
+    def drive_gen1(run, label, path, n_windows, first):
+        state = pipeline.new_state(B, GEN1_SENSOR, device=dev)
+        for fn in counters.values():
+            fn.launches = 0
+        for i, (ev, nv) in enumerate(windows[first:first + n_windows]):
+            state, vol = run.stages["encode_transform"](state, ev, nv)
+            dets, keep = run.stages["detect"](vol)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(state).all() and torch.isfinite(dets).all()
+                    and dets.shape == (B, 100, 6)):
+                raise SystemExit(f"{label} window {i}: non-finite output or "
+                                 f"dets {tuple(dets.shape)}")
+            log(f"{label} window {i}: kept {int(keep.sum().item())} of "
+                f"{int((dets[..., 5] > 0).sum().item())} boxes past conf "
+                f"0.3 over {B} streams")
+        by_path[path] = {k: fn.launches for k, fn in counters.items()}
+        if min(by_path[path][k] for k in (B1, B2)) < n_windows:
+            raise SystemExit(f"{label} did not go through B1 and B2: "
+                             f"{by_path[path]}")
+        return state, vol
+
+    state, vol = drive_gen1(runs["merged"], "merged head path",
+                            "gen1_merged", MAIN_WINDOWS, 0)
+    with torch.inference_mode():
+        rel = maps_rel_l2(merged(vol), canon(vol))
+    log(f"merged head against the canonical head, bf16 head maps on the "
+        f"same weights, relative L2 per level: "
+        + ", ".join(f"{r:.2e}" for r in rel))
+    if not all(r < MERGED_BF16_REL for r in rel):
+        raise SystemExit(f"merged head maps beyond relative L2 "
+                         f"{MERGED_BF16_REL} of the canonical: {rel}")
+    planted = planted_fault_rel(merged, canon, vol)
+    log(f"the gate against a planted fault (two channels of level 0's reg "
+        f"tower layer-1 BatchNorm swapped), relative L2 per level: "
+        + ", ".join(f"{r:.2e}" for r in planted))
+    if not planted[0] > MERGED_BF16_REL:
+        raise SystemExit(f"the planted fault reads {planted[0]:.2e} at "
+                         f"level 0, within the gate {MERGED_BF16_REL}")
+
+    fresh = pipeline.new_state(B, GEN1_SENSOR, device=dev)
+    quant = pipeline.calibrate_pipeline(runs["merged"], merged, f32_state,
+                                        fresh, windows[:2])
+    sites = quantize.eligible_sites(canon)
+    if set(quant[0]) != set(sites):
+        raise SystemExit(f"merged calibration: {len(quant[0])} keys, not "
+                         f"the canonical model's {len(sites)} sites")
+    canon_scales = pipeline.calibrate_pipeline(
+        runs["canonical"], canon, f32_state,
+        pipeline.new_state(B, GEN1_SENSOR, device=dev), windows[:2])[0]
+    spread = max(abs(quant[0][k] / v - 1) for k, v in canon_scales.items())
+    log(f"merged calibration: the canonical model's {len(sites)} site keys, "
+        f"ranges within {spread:.2e} (relative) of the canonical "
+        f"calibration's")
+    int8 = {"merged": pipeline.make_pipeline_kernel(
+                merged, GEN1_SENSOR, GEN1_INPUT, device=dev, quant=quant),
+            "canonical": pipeline.make_pipeline_kernel(
+                canon, GEN1_SENSOR, GEN1_INPUT, device=dev, quant=quant)}
+    ctx = int8["merged"].int8          # the timed path's own sites
+    per_window = len(ctx.sites) + sum(
+        len(v) for _, m in ctx.merged.values() for v in m.sites.values())
+    state, vol = drive_gen1(int8["merged"], "merged head int8 path",
+                            "gen1_merged_int8", INT8_WINDOWS, 2)
+    launched = by_path["gen1_merged_int8"]["int8_conv2d"]
+    log(f"merged head int8 path: int8_conv2d launched {launched} times over "
+        f"{INT8_WINDOWS} windows ({per_window} a window: {len(ctx.sites)} "
+        f"canonical sites, the towers' 12 as "
+        f"{per_window - len(ctx.sites)}; the canonical path's "
+        f"{len(sites)})")
+    if launched != per_window * INT8_WINDOWS:
+        raise SystemExit(f"merged int8 path: {launched} launches, not "
+                         f"{per_window} x {INT8_WINDOWS}")
+    errs = int8_site_errors(merged, vol, ctx)
+    errs.update(merged_site_errors(quantize, merged, vol, ctx))
+    worst = max(errs, key=errs.get)
+    log(f"merged int8 sites against their bf16 convs, relative L2: median "
+        f"{sorted(errs.values())[len(errs) // 2]:.4f}, largest "
+        f"{errs[worst]:.4f} ({worst}); the merged towers "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in errs.items()
+                    if isinstance(k, tuple))
+        + "; every merged launch bit for bit its twin")
+    if not all(1e-4 < e < 0.04 for e in errs.values()):
+        raise SystemExit(f"merged int8 sites beyond relative L2 0.04: "
+                         f"{errs}")
+    rel = head_maps_rel_l2(merged, vol, ctx)
+    log(f"merged int8 head maps against bf16, relative L2 per level: "
+        + ", ".join(f"{r:.4f}" for r in rel))
+    if not all(0 < r < 0.08 for r in rel):
+        raise SystemExit(f"merged int8 head maps beyond relative L2 0.08: "
+                         f"{rel}")
+
+    ev, nv = windows[0]
+    times = {}
+    for dtype, pair in (("bf16", runs), ("int8", int8)):
+        for name in ("canonical", "merged", "merged", "canonical"):
+            run = pair[name]
+            det_ms = time_ms(lambda: run.stages["detect"](vol), n=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(10):
+                state, _ = run(state, *windows[i % len(windows)])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / 10 * 1e3
+            times.setdefault((dtype, name), []).append((det_ms, step_ms))
+    for (dtype, name), rows in times.items():
+        log(f"GEN1 {dtype} {name} head on {card}: detect "
+            + " / ".join(f"{r[0]:.3f}" for r in rows) + " ms, run_step "
+            + " / ".join(f"{r[1]:.3f} ms = {B / r[1] * 1e3:.1f}"
+                         for r in rows) + " windows/s")
+    del runs, int8
+    torch.cuda.empty_cache()
+
+    taf = build_detector(2, stem="taf",
+                         generator=torch.Generator().manual_seed(0))
+    pipeline.spread_random_weights_(taf, torch.Generator().manual_seed(1))
+    by_path["gen1_taf_stem"] = run_main_path(
+        pipeline, counters, windows[:MAIN_WINDOWS], dev, card, model=taf,
+        label="taf stem path")
+    del taf
+    torch.cuda.empty_cache()
+    return by_path, merged_tower_sites(quantize, merged.head.width, rate,
+                                       card_name)
+
+
+def run_experimental_trainers(train, build_detector, data, counters, dev,
+                              card, card_name):
+    """Phase 39: train_family (train_family_that_fits) of taf_swin,
+    taf_corr and taf_syn on phase 28's TAF blobs at GEN1, batch
+    TREE_BATCH, the configs' widths, bf16 over f32 masters; then
+    gen1_train through train.run_train with the merged head and the
+    canonical one in turns (ms/step, peak memory; no kernel launched)."""
+    out = {exp_type: train_family_that_fits(
+        train, exp_type, data["taf_dir"], data["tree"]["labels"], K,
+        counters, dev, card, card_name) for exp_type in NEW_FAMILIES}
+    rows = {}
+    for name in ("canonical", "merged", "merged", "canonical"):
+        model = build_detector(2, stem="bfm", train=True,
+                               head_merged=name == "merged",
+                               generator=torch.Generator().manual_seed(0))
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rep = train.run_train("gen1_train", steps=TRAIN_STEPS,
+                              warmup=TRAIN_WARMUP, model=model, device=dev)
+        torch.cuda.synchronize()
+        if any(fn.launches for fn in counters.values()):
+            raise SystemExit(f"gen1_train {name} head launched a kernel")
+        if not all(np.isfinite(v) for lo in rep["losses"]
+                   for v in lo.values()):
+            raise SystemExit(f"gen1_train {name} head: non-finite losses")
+        rows.setdefault(name, []).append((rep["ms_per_step"],
+                                          rep["peak_bytes"] / 2**30))
+        del model, rep
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        log(f"gen1_train {name} head on {card}: "
+            + " / ".join(f"{ms:.2f}" for ms, _ in r) + " ms/step at batch "
+            f"{train.TRAIN_CONFIGS['gen1_train']['batch']}, peak memory "
+            + " / ".join(f"{gib:.2f}" for _, gib in r) + " GiB")
+    out["gen1_train_heads"] = rows
+    return out
+
+
+def mbv2ca_small_step(d, dtype=torch.float32):
+    """MBV2CA (width 0.25, 10 classes, 3 x 64 x 64 images, dropout 0) on
+    device d in `dtype`: its eval logits, then one SGD(1e-2) step of the
+    mean cross-entropy from the seeded weights: (logits, loss, running
+    statistics after), on the host."""
+    from frlw_evd_tpu_torch.models.detector import init_parameters_
+    from frlw_evd_tpu_torch.models.mobilenet import MBV2CA
+
+    model = MBV2CA(3, num_classes=10, width_mult=0.25)
+    init_parameters_(model, torch.Generator().manual_seed(0))
+    model.drop.rate = 0.0
+    model.to(d, dtype)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 64, 3))).to(d, dtype)
+    y = torch.from_numpy(rng.integers(0, 10, 4)).to(d)
+    with torch.no_grad():
+        logits = model.eval()(x).cpu()
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    loss = torch.nn.functional.cross_entropy(model.train()(x), y)
+    loss.backward()
+    opt.step()
+    stats = {k: v.double().cpu() for k, v in model.state_dict().items()
+             if k.endswith(STATS)}
+    return logits, loss.item(), stats
+
+
+def check_new_modules_against_cpu(train, build_detector, dev):
+    """Phase 40, card against CPU in f32 with TF32 off at small size:
+    phase 37's check (family_small_step) of taf_swin, taf_corr and
+    taf_syn (the swin and corr stems, SwinDarknet); phase 19's
+    small_train_errors of the small AED with the taf and taf_3d stems and
+    with the merged head (losses rtol 2e-4, statistics 1e-5, and in f64
+    gradients and parameters 1e-6); MBV2CA's eval logits in f32 within
+    1e-4 of their largest magnitude (DET_GATES' score gate, relative),
+    its train step's loss within rtol 2e-4
+    and statistics within 1e-5 with the network in f64 (in f32 a running
+    variance of its 17 blocks read 1.0e-5 apart on an H100 and the CPU,
+    the gate's width: as phase 19 holds gradients, f64 tests the
+    algorithm)."""
+    check_families_against_cpu(train, dev, NEW_FAMILIES)
+    for label, kw in (("taf stem", dict(stem="taf")),
+                      ("taf_3d stem", dict(stem="taf_3d")),
+                      ("merged head", dict(head_merged=True))):
+        err = small_train_errors(train, build_detector, dev, **kw)
+        log(f"small {label} train step, card vs CPU: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in err.items()))
+        if any(err[k] > gate for k, gate in SMALL_TRAIN_GATES.items()):
+            raise SystemExit(f"small {label} train step: card and CPU "
+                             f"disagree beyond {SMALL_TRAIN_GATES}: {err}")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        c_lo, g_lo = (mbv2ca_small_step(d)[0] for d in ("cpu", dev))
+        (_, c_loss, c_st), (_, g_loss, g_st) = (
+            mbv2ca_small_step(d, torch.float64) for d in ("cpu", dev))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    # at its init the net's CoordAtt gates (sigmoids near 1/2, two a
+    # block) shrink the logits to about 1e-6: held relative to the largest
+    logit_err = ((g_lo - c_lo).abs().max() / c_lo.abs().max()).item()
+    stat_err = max((g_st[k] - v).abs().max().item() for k, v in c_st.items())
+    log(f"MBV2CA small step, card vs CPU: f32 logits err {logit_err:.2e} "
+        f"of the largest ({c_lo.abs().max().item():.2e}); f64 network: loss "
+        f"rel "
+        f"err {abs(g_loss / c_loss - 1):.2e}, statistics err "
+        f"{stat_err:.2e} over {len(c_st)} buffers")
+    if (logit_err > DET_GATES["score"]
+            or abs(g_loss / c_loss - 1) > SMALL_TRAIN_GATES["losses"]
+            or stat_err > SMALL_TRAIN_GATES["statistics"]):
+        raise SystemExit("MBV2CA small step: card and CPU disagree")
 
 
 def main() -> int:
@@ -3474,6 +3892,22 @@ def main() -> int:
           train, data, ev_dir, counters, dev, card, name)
     phase(37, "five families small, card vs CPU",
           check_families_against_cpu, train, dev)
+    torch.cuda.empty_cache()
+    windows = (device_windows(pipeline, np.random.default_rng(9), E,
+                              GEN1_SENSOR, dev)
+               + device_windows(pipeline, np.random.default_rng(10), E,
+                                GEN1_SENSOR, dev))
+    merged_paths, rows["int8_conv2d"]["merged"] = phase(
+        38, "GEN1 merged head and taf stem", run_merged_head_path, pipeline,
+        quantize, build_detector, counters, windows, dev, card, rate, name)
+    by_path.update(merged_paths)
+    del windows
+    torch.cuda.empty_cache()
+    phase(39, "Trainer: taf_swin, taf_corr, taf_syn; merged gen1_train",
+          run_experimental_trainers, train, build_detector, data, counters,
+          dev, card, name)
+    phase(40, "new stems, SwinDarknet, MBV2CA, merged head small, card vs "
+          "CPU", check_new_modules_against_cpu, train, build_detector, dev)
     shutil.rmtree(WORK, ignore_errors=True)
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
@@ -3484,7 +3918,8 @@ def main() -> int:
                              ("gen1", "gen1_int8", "gen1_packed_pallas",
                               "gen4_packed_pallas", "gen4_folded_pallas",
                               "gen1_taf_packed", "gen4_taf_packed",
-                              "gen1_yolox"),
+                              "gen1_yolox", "gen1_merged",
+                              "gen1_merged_int8", "gen1_taf_stem"),
                              "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                              "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_p64": ("scatter_cnt_tsum",
@@ -3506,7 +3941,8 @@ def main() -> int:
                              ("gen1", "gen1_int8", "gen4_folded_pallas",
                               "gen4_folded_sorted", "gen4_p64k4_raw",
                               "gen4_p64k4_precise", "gen4_p64k4_sorted",
-                              "gen1_yolox"),
+                              "gen1_yolox", "gen1_merged",
+                              "gen1_merged_int8", "gen1_taf_stem"),
                              "frlw_evd_tpu_torch/csrc/taf_update.cu",
                              "frlw_evd_tpu/encode/pallas_update.py:37"),
         "taf_update_leaky_raw": ("taf_update_leaky_raw",
@@ -3526,7 +3962,8 @@ def main() -> int:
         "bfm_chain_apply": ("bfm_chain_apply", ("gen4_bfm_p64_kernel",),
                             "frlw_evd_tpu_torch/csrc/bfm_chain.cu",
                             "frlw_evd_tpu/models/pallas_stem.py:59"),
-        "int8_conv2d": ("int8_conv2d", ("gen1_int8", "gen4_int8"),
+        "int8_conv2d": ("int8_conv2d", ("gen1_int8", "gen4_int8",
+                                        "gen1_merged_int8"),
                         "frlw_evd_tpu_torch/csrc/int8_conv.cu",
                         "none (XLA conv, frlw_evd_tpu/models/quantize.py:283)"),
     }
@@ -3557,7 +3994,8 @@ def main() -> int:
                                                "cudnn_bf16_ms",
                                                "ms_1x1", "int_mm_1x1_ms",
                                                "by_site", "map_host_us",
-                                               "gen4", "stream_infer_b1")
+                                               "gen4", "merged",
+                                               "stream_infer_b1")
                            if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -89,12 +89,10 @@ def main() -> int:
             site_shapes(quantize, build_detector).items()):
         x = torch.randn(B, cin, h, w, device="cuda", generator=g).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        conv = torch.nn.Conv2d(cin, cout, k, s, (k - 1) // 2, bias=False,
-                               device="cuda")
         q = torch.randint(-127, 128, (cout, cin, k, k), device="cuda",
                           generator=g, dtype=torch.int8)
         sw = torch.rand(cout, device="cuda", generator=g) * 1e-3
-        site = quantize.Int8Site(conv, sx, q, sw)
+        site = quantize.Int8Site(q, sw, sx, s)
         if not torch.equal(site(x), quantize.int8_conv2d_plain(
                 x, site.wq, site.scale, site.inv, stride=s)):
             raise SystemExit(f"k{k} s{s} {cin}->{cout} {h}x{w}: the site "
@@ -118,7 +116,7 @@ def main() -> int:
               f"cuDNN bf16 {row['cudnn_device']:.4f} / "
               f"{row['cudnn_back']:.4f}; outputs bitwise", flush=True)
         rows.append(row)
-        del x, conv, site, w_bf
+        del x, site, w_bf
         torch.cuda.empty_cache()
     print(f"per window ({sum(r['sites'] for r in rows)} sites): device "
           f"{totals['device']:.3f} ms, back to back {totals['back']:.3f}; "

@@ -97,23 +97,64 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.running_var, self.weight.float(),
                                 self.bias.float(), False, 0.0,
                                 self.eps).to(x.dtype)
-        stat = torch.promote_types(x.dtype, torch.float32)
-        mean = torch.zeros(x.shape[1], dtype=stat, device=x.device)
-        unbiased = torch.zeros_like(mean)
-        y = F.batch_norm(x, mean, unbiased, self.weight.to(stat),
-                         self.bias.to(stat), True, 1.0, self.eps)
-        if not self.update_stats:
-            return y
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
-            self.running_var.mul_(MOMENTUM).add_(unbiased * ((n - 1) / n),
-                                                 alpha=1 - MOMENTUM)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
+        if self.update_stats:
+            update_running_(self, mean, var)
         return y
 
 
+def batch_norm_train(x, weight, bias, eps: float):
+    """Training-mode BatchNorm of NCHW x on its batch statistics:
+    (y in x's dtype, the batch mean, its biased variance), the statistics
+    reduced in at least f32. They come out of the one batch-norm call that
+    normalises (momentum 1 into scratch buffers: the mean and the unbiased
+    variance), the variance scaled back by (n - 1) / n."""
+    stat = torch.promote_types(x.dtype, torch.float32)
+    mean = torch.zeros(x.shape[1], dtype=stat, device=x.device)
+    unbiased = torch.zeros_like(mean)
+    y = F.batch_norm(x, mean, unbiased, weight.to(stat), bias.to(stat), True,
+                     1.0, eps)
+    n = x.numel() // x.shape[1]
+    return y, mean, unbiased * ((n - 1) / n)
+
+
+@torch.no_grad()
+def update_running_(bn: nn.BatchNorm2d, mean, var) -> None:
+    """flax's running update: running = 0.9 * running + 0.1 * batch."""
+    bn.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
+    bn.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
+
+
+class Dropout(nn.Module):
+    """flax's nn.Dropout (stems.py:124, :126): in training, each element
+    is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
+    zeroed; the identity at eval or at rate 0. The masks come from
+    `generator`, a torch.Generator on the input's device that the train
+    step sets (F.dropout takes none), so one seed gives one set of masks."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training needs its generator set "
+                               "(the train step sets it)")
+        keep = 1.0 - self.rate
+        # the uniforms in x's memory layout (channels_last on the card),
+        # so the select runs as one contiguous pass
+        u = torch.empty_like(x, dtype=torch.float32)
+        mask = u.uniform_(generator=self.generator) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
 class BaseConv(nn.Module):
-    """Conv2d → BatchNorm → activation (blocks.py:177).
+    """Conv2d → BatchNorm → dropout → activation (blocks.py:177-221); the
+    dropout (`drop`, flax's rate `dropout`) only where dropout > 0, as
+    TemporalActiveFocus3D's fusing conv has it.
 
     patchify_fused=True takes the raw (pre-patchify) grid with
     `in_channels` channels and applies patchify + 3x3 conv as one 6x6
@@ -121,21 +162,27 @@ class BaseConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
                  stride: int = 1, groups: int = 1, bias: bool = False,
-                 act: str = "silu", patchify_fused: bool = False):
+                 act: str = "silu", patchify_fused: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         if patchify_fused:
-            if (ksize, stride, groups, bias) != (3, 1, 1, False):
+            if (ksize, stride, groups, bias, dropout) != (3, 1, 1, False,
+                                                          0.0):
                 raise ValueError("patchify_fused needs ksize=3, stride=1, "
-                                 "groups=1, bias=False")
+                                 "groups=1, bias=False, dropout=0")
             self.conv = PatchFusedConv2d(in_channels, out_channels)
         else:
             self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
                                   (ksize - 1) // 2, groups=groups, bias=bias)
         self.bn = BatchNorm2d(out_channels, eps=1e-5)
+        self.drop = Dropout(dropout) if dropout > 0 else None
         self.act = get_activation(act)
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+        x = self.bn(self.conv(x))
+        if self.drop is not None:
+            x = self.drop(x)
+        return self.act(x)
 
 
 class DWConv(nn.Module):

@@ -2,16 +2,20 @@
 
 `Darknet` (depth 21) is the AED backbone: pluggable stem, four ResLayer
 groups and the SPP block in dark5. `CSPDarknet` is the standard YOLOX
-backbone of the yolox family. Both return the (dark3, dark4, dark5)
-pyramid, NCHW."""
+backbone of the yolox family. `SwinDarknet` is Darknet-21 with the
+TemporalActiveFocus3D stem beside the main one, fused by `SEAttention`
+(the taf_syn exp type). Each returns the (dark3, dark4, dark5) pyramid,
+NCHW."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
 
 from .blocks import BaseConv, CSPLayer, DWConv, ResLayer, SPPBottleneck
+from .stems import TemporalActiveFocus3D
 
 BLOCKS = (1, 2, 2, 1)     # ResLayers per group at depth 21 (darknet.py:18)
 
@@ -113,4 +117,53 @@ class CSPDarknet(nn.Module):
         d3 = self.dark3_csp(self.dark3_conv(x))
         d4 = self.dark4_csp(self.dark4_conv(d3))
         d5 = self.dark5_csp(self.dark5_spp(self.dark5_conv(d4)))
+        return [d3, d4, d5]
+
+
+class SEAttention(nn.Module):
+    """Squeeze-excite channel gate, then a 1x1 BaseConv `conv2`
+    (darknet.py:132-155). The reference's forward calls a `self.conv` that
+    its __init__ never makes; as in the JAX package, the gate acts on the
+    input directly."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 reduction: int = 16, act: str = "silu"):
+        super().__init__()
+        self.fc1 = nn.Linear(in_channels, in_channels // reduction,
+                             bias=False)
+        self.fc2 = nn.Linear(in_channels // reduction, in_channels,
+                             bias=False)
+        self.conv2 = BaseConv(in_channels, out_channels, 1, act=act)
+
+    def forward(self, x):
+        y = torch.sigmoid(self.fc2(torch.relu(self.fc1(x.mean((2, 3))))))
+        return self.conv2(x * y[:, :, None, None])
+
+
+class SwinDarknet(nn.Module):
+    """Darknet-21 with TemporalActiveFocus3D as a second stem beside
+    `stem`, the two concatenated and fused by SEAttention (reduction 4)
+    into 2 * stem_out_channels, and dark2 narrowed to stem_out_channels as
+    in the reference (darknet.py:158-194). stem as Darknet's."""
+
+    def __init__(self, stem, in_channels: int, stem_out_channels: int = 64,
+                 out_channels: Sequence[int] = (256, 256, 256),
+                 act: str = "silu"):
+        super().__init__()
+        base = stem_out_channels
+        c3, c4, c5 = out_channels
+        self.stem = stem(in_channels, base, ksize=3, act=act)
+        self.stem2 = TemporalActiveFocus3D(in_channels, base, act=act)
+        self.se = SEAttention(2 * base, 2 * base, reduction=4, act=act)
+        self.dark2 = _GroupLayer(2 * base, base, BLOCKS[0], act=act)
+        self.dark3 = _GroupLayer(base, c3, BLOCKS[1], act=act)
+        self.dark4 = _GroupLayer(c3, c4, BLOCKS[2], act=act)
+        self.dark5_group = _GroupLayer(c4, c5, BLOCKS[3], act=act)
+        self.dark5_spp = _SPPBlock(c5, (c5, c5), act=act)
+
+    def forward(self, x):
+        h = self.se(torch.cat([self.stem(x), self.stem2(x)], dim=1))
+        d3 = self.dark3(self.dark2(h))
+        d4 = self.dark4(d3)
+        d5 = self.dark5_spp(self.dark5_group(d4))
         return [d3, d4, d5]

@@ -1,13 +1,15 @@
 """Composite detectors (counterpart of frlw_evd_tpu/models/detector.py):
-stem + backbone → neck → head for the AED and yolox families, with their
-training loss, and the recurrent `MemoryEventDetector` (backbone →
+stem + backbone → neck → head for the AED, swin_darknet (taf_syn) and
+yolox families, with their training loss and the merged head towers
+(`head_merged`), and the recurrent `MemoryEventDetector` (backbone →
 per-level ConvLSTM / ConvGRU memory → neck → head) of the convlstm and
 recconv families with `rollout_memory_detector`.
 
 `EventDetector` takes the JAX layout at its boundary and returns per-level
 NHWC head maps; inside it runs NCHW (channels_last in memory when the input
 is a contiguous NHWC tensor). The stem owns the input layout: an NHWC
-volume (N, H, W, 2K) for `focus` and `bfm`, the patchified (N, H/2, W/2,
+volume (N, H, W, 2K) for `focus`, `bfm`, `taf`, `taf_3d`, `taf_swin` and
+`taf_corr`, the patchified (N, H/2, W/2,
 4*2K) for the p64 stems, and its folded form (N, H/2, (W/2)*64) for
 `bfm_folded`.
 """
@@ -22,22 +24,29 @@ import torch
 from torch import nn
 
 from .blocks import Focus, PatchFusedConv2d
-from .darknet import CSPDarknet, Darknet
+from .darknet import CSPDarknet, Darknet, SwinDarknet
 from .heads import (YOLOXHead, compute_losses, decode_outputs,
                     flatten_level_outputs, level_grids)
 from .memory import MemoryModel, carries_nchw, carries_nhwc
 from .pafpn import YOLOPAFPN
 from .stems import (BinsFusionModule, BinsFusionModuleFolded,
                     BinsFusionModulePatched, BinsFusionModulePatchedKernel,
-                    FocusPatched, PadKernelConv2d, TiledConv1x1,
-                    WeightNormConv1x1, _BFMChain)
+                    FocusPatched, PadKernelConv2d, TemporalActiveFocus,
+                    TemporalActiveFocus3D, TiledConv1x1, WeightNormConv1x1,
+                    _BFMChain)
+from .swin3d import (CorrAttention3D, TemporalActiveFocusCorr,
+                     TemporalActiveFocusSwin, WindowAttention3D)
 from .yolov3 import YOLOv3Head
 
 # the p64 variants have the parameters of focus / bfm (detector.py:93-106)
-_STEMS = {"focus": Focus, "bfm": BinsFusionModule, "focus_p64": FocusPatched,
+_STEMS = {"focus": Focus, "taf": TemporalActiveFocus,
+          "bfm": BinsFusionModule, "focus_p64": FocusPatched,
           "bfm_p64": BinsFusionModulePatched,
           "bfm_p64_kernel": BinsFusionModulePatchedKernel,
-          "bfm_folded": BinsFusionModuleFolded}
+          "bfm_folded": BinsFusionModuleFolded,
+          "taf_swin": TemporalActiveFocusSwin,
+          "taf_corr": TemporalActiveFocusCorr,
+          "taf_3d": TemporalActiveFocus3D}
 
 
 class EventDetector(nn.Module):
@@ -96,20 +105,25 @@ def rollout_memory_detector(model: MemoryEventDetector, windows):
 
 def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the JAX package's scales: lecun-normal
-    conv kernels (std 1/sqrt(fan_in)), zero conv biases, weight-norm
-    v ~ N(0, 0.01) and g = 1, identity BatchNorm, the YOLOX prior bias
-    -log((1-p)/p) on the cls and obj predictors (heads.py:141) and, on a
-    YOLOv3 head, on the first KA channels of each det conv
-    (yolov3.py:169-181)."""
+    conv and Dense kernels (std 1/sqrt(fan_in)), zero biases, weight-norm
+    v ~ N(0, 0.01) and g = 1, identity BatchNorm (LayerNorms are built
+    so), the relative position bias tables N(0, 0.02) truncated at two
+    standard deviations, the YOLOX prior bias -log((1-p)/p) on the cls
+    and obj predictors (heads.py:141) and, on a YOLOv3 head, on the first
+    KA channels of each det conv (yolov3.py:169-181)."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, PatchFusedConv2d, TiledConv1x1,
+            if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear,
+                                PatchFusedConv2d, TiledConv1x1,
                                 PadKernelConv2d)):
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                    generator=generator)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, (WindowAttention3D, CorrAttention3D)):
+                nn.init.trunc_normal_(mod.relative_position_bias_table, 0.0,
+                                      0.02, -0.04, 0.04, generator=generator)
             elif isinstance(mod, WeightNormConv1x1):
                 mod.weight_v.normal_(0.0, 0.01, generator=generator)
                 mod.weight_g.fill_(1.0)
@@ -142,35 +156,38 @@ def build_detector(num_classes: int, *, family: str = "aed",
                    depth: float = 0.33, stem_out_channels: int = 64,
                    head_width: int = 256, input_channels: int = 16,
                    generator: torch.Generator | None = None,
-                   train: bool = False,
-                   dropout_rate: float = 0.1) -> EventDetector:
+                   train: bool = False, dropout_rate: float = 0.1,
+                   head_merged: bool = False) -> EventDetector:
     """The exp-type model matrix (detector.py:109-143). family "aed":
-    Darknet-21 + YOLOPAFPN + YOLOXHead, `in_channels` wide; "yolox":
-    CSPDarknet (dep_mul 0.33, wid_mul 0.5) + YOLOPAFPN at depth 0.33 over
-    its (128, 256, 512) channels + YOLOXHead, as JAX sets them whatever
-    `in_channels`, `depth` and `stem_out_channels` say. stem: one of
-    _STEMS. input_channels is the volume's 2K (per subpixel block for the
-    p64 stems).
+    Darknet-21 + YOLOPAFPN + YOLOXHead, `in_channels` wide;
+    "swin_darknet": the same with SwinDarknet (a TemporalActiveFocus3D
+    stem beside `stem`); "yolox": CSPDarknet (dep_mul 0.33, wid_mul 0.5) +
+    YOLOPAFPN at depth 0.33 over its (128, 256, 512) channels + YOLOXHead,
+    as JAX sets them whatever `in_channels`, `depth` and
+    `stem_out_channels` say. stem: one of _STEMS. input_channels is the
+    volume's 2K (per subpixel block for the p64 stems). head_merged runs
+    each level's cls and reg towers as two double-width convs on the same
+    parameters (one checkpoint serves both heads).
     Parameters are initialised from `generator` (a fresh seed-0 generator
     when None); the model is on the CPU, in f32, in eval mode, or in
     training mode when `train`. dropout_rate is the BFM stems' dropout in
     training (stems.py:100), taken by every BFM stem; the kernel stems
     refuse training."""
     stem_cls = _stem_class(stem, dropout_rate)
-    if family == "aed":
-        backbone = Darknet(stem_cls, input_channels,
-                           stem_out_channels=stem_out_channels,
-                           out_channels=tuple(in_channels), act=act)
+    if family in ("aed", "swin_darknet"):
+        backbone = (Darknet if family == "aed" else SwinDarknet)(
+            stem_cls, input_channels, stem_out_channels=stem_out_channels,
+            out_channels=tuple(in_channels), act=act)
     elif family == "yolox":
         in_channels, depth = (128, 256, 512), 0.33
         backbone = CSPDarknet(stem_cls, input_channels, dep_mul=0.33,
                               wid_mul=0.5, act=act)
     else:
-        raise ValueError(f"the port builds families 'aed' and 'yolox', "
-                         f"got {family!r}")
+        raise ValueError(f"the port builds families 'aed', 'swin_darknet' "
+                         f"and 'yolox', got {family!r}")
     neck = YOLOPAFPN(depth=depth, in_channels=tuple(in_channels), act=act)
     head = YOLOXHead(num_classes, tuple(in_channels), strides=strides,
-                     width=head_width, act=act)
+                     width=head_width, act=act, merged=head_merged)
     model = EventDetector(backbone, neck, head)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

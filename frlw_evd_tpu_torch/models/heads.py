@@ -3,8 +3,9 @@ frlw_evd_tpu/models/heads.py), with the reference's square w/h decode and
 the SimOTA training loss.
 
 The head returns raw per-level maps in the JAX layout: NHWC
-(N, h, w, 4+1+C) ordered [reg, obj, cls]. The merged-tower variant
-(`head_merged`) is not ported yet.
+(N, h, w, 4+1+C) ordered [reg, obj, cls]. With `merged` (build_detector's
+`head_merged`) each level's cls and reg towers run as two double-width
+convs on the canonical parameters (`_merged_towers`).
 """
 
 from __future__ import annotations
@@ -17,19 +18,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from .assign import simota_assign
-from .blocks import BaseConv
+from .blocks import (BaseConv, batch_norm_train, get_activation,
+                     update_running_)
 from .losses import bce_with_logits, iou_loss
 
 
 class YOLOXHead(nn.Module):
-    """Separate cls and reg towers per level (heads.py:125-164)."""
+    """Separate cls and reg towers per level (heads.py:125-164), or with
+    `merged` the two towers of a level as two double-width convs
+    (heads.py:69-122) on the same submodules and state_dict, so one
+    checkpoint serves both. `merged_hook`, when set, is asked for each
+    merged conv first (models/quantize.py's calibration and int8 sites):
+    merged_hook(k, layer, h) → the conv's output, or None for the plain
+    conv."""
+
+    merged_hook = None
 
     def __init__(self, num_classes: int, in_channels: Sequence[int],
                  strides: Sequence[int] = (8, 16, 32), width: int = 256,
-                 act: str = "silu", prior_prob: float = 1e-2):
+                 act: str = "silu", prior_prob: float = 1e-2,
+                 merged: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.strides = tuple(strides)
+        self.width = width
+        self.merged = merged
+        self.act = get_activation(act)
         self.prior_bias = -math.log((1 - prior_prob) / prior_prob)
         for k, cin in enumerate(in_channels):
             self.add_module(f"stems_{k}", BaseConv(cin, width, 1, act=act))
@@ -45,15 +59,56 @@ class YOLOXHead(nn.Module):
         outs = []
         for k, x in enumerate(features):
             x = getattr(self, f"stems_{k}")(x)
-            cls_feat = getattr(self, f"cls_convs_{k}_1")(
-                getattr(self, f"cls_convs_{k}_0")(x))
-            reg_feat = getattr(self, f"reg_convs_{k}_1")(
-                getattr(self, f"reg_convs_{k}_0")(x))
+            if self.merged:
+                cls_feat, reg_feat = self._merged_towers(k, x)
+            else:
+                cls_feat = getattr(self, f"cls_convs_{k}_1")(
+                    getattr(self, f"cls_convs_{k}_0")(x))
+                reg_feat = getattr(self, f"reg_convs_{k}_1")(
+                    getattr(self, f"reg_convs_{k}_0")(x))
             out = torch.cat([getattr(self, f"reg_preds_{k}")(reg_feat),
                              getattr(self, f"obj_preds_{k}")(reg_feat),
                              getattr(self, f"cls_preds_{k}")(cls_feat)], dim=1)
             outs.append(out.permute(0, 2, 3, 1))
         return outs
+
+    def _merged_towers(self, k: int, x):
+        """Level k's towers as two convs (heads.py:69-122): layer 0 one
+        dense 3x3 conv W → 2W on the output-concatenated cls and reg
+        kernels, layer 1 one grouped (groups 2) 3x3 conv 2W → 2W. Each
+        BatchNorm runs in f32 on the conv's output cast to f32 (an f64
+        network's stays f64, where JAX's casts it to f32), on the
+        concatenated per-branch statistics at eval; in training on the
+        batch statistics, each branch's running statistics updated from
+        its own slice. Returns (cls_feat, reg_feat)."""
+        W, h = self.width, x
+        for layer in (0, 1):
+            towers = [getattr(self, f"{b}_convs_{k}_{layer}")
+                      for b in ("cls", "reg")]
+            y = (None if self.merged_hook is None
+                 else self.merged_hook(k, layer, h))
+            if y is None:
+                kernel = torch.cat([t.conv.weight for t in towers])
+                y = F.conv2d(h, kernel.to(h.dtype), padding=1,
+                             groups=2 if layer else 1)
+            y = y.to(torch.promote_types(y.dtype, torch.float32))
+            bns = [t.bn for t in towers]
+            scale = torch.cat([bn.weight for bn in bns])
+            bias = torch.cat([bn.bias for bn in bns])
+            if self.training:
+                y, mean, var = batch_norm_train(y, scale, bias, bns[0].eps)
+                for i, bn in enumerate(bns):
+                    if bn.update_stats:
+                        update_running_(bn, mean[i * W:(i + 1) * W],
+                                        var[i * W:(i + 1) * W])
+            else:
+                y = F.batch_norm(
+                    y, torch.cat([bn.running_mean for bn in bns]).to(y.dtype),
+                    torch.cat([bn.running_var for bn in bns]).to(y.dtype),
+                    scale.to(y.dtype), bias.to(y.dtype), False, 0.0,
+                    bns[0].eps)
+            h = self.act(y.to(x.dtype))
+        return h[:, :W], h[:, W:]
 
 
 def level_grids(hw_per_level, strides, device=None):

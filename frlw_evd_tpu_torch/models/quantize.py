@@ -28,9 +28,19 @@ is; with empty scales it does nothing. On CUDA tensors `int8_conv2d`
 launches `csrc/int8_conv.cu` (wgmma s8 tensor cores, TMA-fed weights, the
 activation quantized where it arrives, bf16 channels_last activations),
 tiled by `tile_plan`, or raises; on CPU tensors it runs the plain twin
-`int8_conv2d_plain`. The JAX package's merged-head hook
-(`maybe_merged_int8_conv`) has no counterpart: the merged head towers are
-not ported.
+`int8_conv2d_plain`.
+
+The merged head towers (heads.YOLOXHead with `merged`) run their convs
+outside the canonical conv modules, so they take part through the head's
+`merged_hook`, keyed by the CANONICAL per-branch conv paths, as the JAX
+package's `maybe_merged_int8_conv` (quantize.py:62-122): calibration
+records each branch's input range under its canonical key (the two
+layer-0 branches share one input; layer 1's halves are recorded
+separately), and `int8_ctx` serves layer 0 as one site of Cout 2W (the
+branches' codes concatenated, the input quantized once with branch 0's sx
+and every branch dequantized with that same sx) and layer 1 as one
+launch per group, each half with its own sx (`MergedSites`). Scales and
+tables are interchangeable between merged and canonical builds.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import _build
+from .heads import YOLOXHead
 
 MIN_CHANNELS = 64
 QMAX = 127
@@ -93,6 +104,29 @@ def eligible_sites(model: nn.Module):
             if eligible(mod)}
 
 
+def merged_heads(model: nn.Module):
+    """{key prefix: head} of the model's YOLOX heads with merged towers
+    whose tower convs are sites (width >= MIN_CHANNELS)."""
+    return {name.replace(".", "/"): mod for name, mod in model.named_modules()
+            if isinstance(mod, YOLOXHead) and mod.merged
+            and mod.width >= MIN_CHANNELS}
+
+
+def tower_keys(prefix: str, k: int, layer: int):
+    """The canonical site keys of level k's two tower convs at `layer`,
+    cls then reg (heads.py:91-92)."""
+    return [f"{prefix}/{b}_convs_{k}_{layer}/conv" for b in ("cls", "reg")]
+
+
+def merged_parts(h, layer: int):
+    """Each branch's input of a merged tower conv: the shared input at
+    layer 0, the channel halves at layer 1 (quantize.py:80-84)."""
+    if layer == 0:
+        return [h, h]
+    w = h.shape[1] // 2
+    return [h[:, :w], h[:, w:]]
+
+
 @torch.inference_mode()
 def calibrate_int8(model: nn.Module, batches):
     """Activation scales from `model(batch)` over the calibration batches
@@ -107,14 +141,29 @@ def calibrate_int8(model: nn.Module, batches):
             amax[key] = m if key not in amax else torch.maximum(amax[key], m)
         return record
 
+    def record_merged(prefix):
+        def record(k, layer, h):
+            for key, part in zip(tower_keys(prefix, k, layer),
+                                 merged_parts(h, layer)):
+                m = part.detach().float().abs().amax()
+                amax[key] = (m if key not in amax
+                             else torch.maximum(amax[key], m))
+            return None                   # the plain conv runs
+        return record
+
     handles = [mod.register_forward_pre_hook(hook(key))
                for key, mod in eligible_sites(model).items()]
+    heads = merged_heads(model)
+    for prefix, head in heads.items():
+        head.merged_hook = record_merged(prefix)
     try:
         for batch in batches:
             model(batch)
     finally:
         for h in handles:
             h.remove()
+        for head in heads.values():
+            head.merged_hook = None
     if not amax:
         return {}
     keys = list(amax)
@@ -411,33 +460,29 @@ int8_conv2d.launches = 0
 
 
 class Int8Site:
-    """One calibrated site, ready for the kernel: OHWI codes, the f32
-    dequant scale f32(sw * sx), the bias, f32(1 / sx) and the stride, on
-    the conv's device; on CUDA also the codes' TMA maps (`weight_map`, one
-    a slab size its plans take)."""
+    """One calibrated site, ready for the kernel: of OIHW codes `q` (a
+    square kernel, padding (k-1)/2) with weight scales `sw` and activation
+    scale `sx`, the OHWI codes, the f32 dequant scale f32(sw * sx), the
+    bias, f32(1 / sx) and the stride, on `device` (q's when None); on CUDA
+    also the codes' TMA maps (`weight_map`, one a slab size its plans
+    take)."""
 
-    def __init__(self, conv: nn.Conv2d, sx: float, q: torch.Tensor,
-                 sw: torch.Tensor):
-        k, stride = conv.kernel_size[0], conv.stride[0]
-        if (conv.kernel_size[0] != conv.kernel_size[1]
-                or conv.stride[0] != conv.stride[1]
-                or tuple(conv.padding) != ((k - 1) // 2,) * 2):
-            raise ValueError(f"int8 site {conv}: the kernel takes square "
-                             f"kernels, equal strides and padding (k-1)/2")
-        check_site(conv.in_channels, conv.out_channels, k, stride)
-        dev = conv.weight.device
+    def __init__(self, q: torch.Tensor, sw: torch.Tensor, sx: float,
+                 stride: int = 1, bias=None, device=None):
+        dev = torch.device(q.device if device is None else device)
+        cout, cin, k = q.shape[0], q.shape[1], q.shape[-1]
+        check_site(cin, cout, k, stride)
         self.stride = stride
         self.inv = _f32(1.0 / sx)
         self.wq = q.permute(0, 2, 3, 1).contiguous().to(dev)
         self.scale = (sw.float().cpu()
                       * torch.tensor(sx, dtype=torch.float32)).to(dev)
-        self.bias = (None if conv.bias is None
-                     else conv.bias.detach().float().to(dev))
+        self.bias = None if bias is None else bias.detach().float().to(dev)
         self.wmaps = ({SLAB: weight_map(self.wq)} if dev.type == "cuda"
                       else None)
         self.inv_bits = _f32_bits(self.inv)
         self.clamp = clamp_bits(self.inv) if dev.type == "cuda" else None
-        self.cin = conv.in_channels
+        self.cin = cin
 
     def __call__(self, x):
         if (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
@@ -449,31 +494,96 @@ class Int8Site:
                            stride=self.stride)
 
 
+class MergedSites:
+    """The int8 sites of a merged head (quantize.py:62-122), keyed
+    (k, layer) where both branches' canonical keys are calibrated (else
+    that conv stays plain, as in JAX): layer 0 one Int8Site of Cout 2W on
+    the concatenated codes, its input quantized once with the cls branch's
+    sx and both branches dequantized with it; layer 1 one Int8Site a
+    group, each on its own half of the input with its own sx (a copy of
+    the half: the kernel reads a contiguous channels_last activation).
+    Called as the head's merged_hook."""
+
+    def __init__(self, prefix: str, head, scales, table):
+        self.sites = {}
+        for k in range(len(head.strides)):
+            for layer in (0, 1):
+                keys = tower_keys(prefix, k, layer)
+                if any(key not in scales for key in keys):
+                    continue
+                convs = [getattr(head, f"{b}_convs_{k}_{layer}").conv
+                         for b in ("cls", "reg")]
+                codes = [table[key] if key in table
+                         else quantize_kernel(conv.weight)
+                         for key, conv in zip(keys, convs)]
+                dev = convs[0].weight.device
+                if layer == 0:
+                    self.sites[k, 0] = [Int8Site(
+                        torch.cat([q for q, _ in codes]),
+                        torch.cat([sw for _, sw in codes]),
+                        scales[keys[0]], device=dev)]
+                else:
+                    self.sites[k, 1] = [
+                        Int8Site(q, sw, scales[key], device=dev)
+                        for (q, sw), key in zip(codes, keys)]
+
+    def __call__(self, k: int, layer: int, h):
+        sites = self.sites.get((k, layer))
+        if sites is None:
+            return None
+        if layer == 0:
+            return sites[0](h)
+        return torch.cat([site(part) for site, part in
+                          zip(sites, merged_parts(h, 1))], dim=1)
+
+
 class int8_ctx:  # noqa: N801 (used as a context manager, like the JAX one)
     """While active, each site of `model` that `scales` calibrates runs
-    `int8_conv2d` (quantize.py:295-314); the rest of the model is
-    untouched. Keys of `scales` that are no site of the model are ignored,
-    and a site missing from `table` is quantized from its live weight, as
-    the JAX interceptor does. The sites are prepared once, here, so one
-    context serves every forward it wraps; a site the kernel does not take
-    raises here. Empty scales make it a no-op."""
+    `int8_conv2d` (quantize.py:295-314), and so do the towers of each
+    merged head (`MergedSites`, in `merged` by the head's key prefix); the
+    rest of the model is untouched. Keys of `scales` that are no site of
+    the model are ignored, and a site missing from `table` is quantized
+    from its live weight, as the JAX interceptor does. The sites are
+    prepared once, here, so one context serves every forward it wraps; a
+    site the kernel does not take raises here. Empty scales make it a
+    no-op."""
 
     def __init__(self, model: nn.Module, scales, table=None):
-        table = table or {}
-        self.sites = {}
+        table, scales = table or {}, scales or {}
+        self.sites, self.merged = {}, {}
+        if not scales:
+            return
+        heads = merged_heads(model)
+        for prefix, head in heads.items():
+            self.merged[prefix] = (head, MergedSites(prefix, head, scales,
+                                                     table))
+        towers = {key for prefix, head in heads.items()
+                  for k in range(len(head.strides)) for layer in (0, 1)
+                  for key in tower_keys(prefix, k, layer)}
         for key, conv in eligible_sites(model).items():
-            if key not in (scales or {}):
+            if key not in scales or key in towers:
                 continue
+            k, stride = conv.kernel_size[0], conv.stride[0]
+            if (conv.kernel_size[1] != k or conv.stride[1] != stride
+                    or tuple(conv.padding) != ((k - 1) // 2,) * 2):
+                raise ValueError(f"int8 site {key} {conv}: the kernel takes "
+                                 f"square kernels, equal strides and "
+                                 f"padding (k-1)/2")
             q, sw = table[key] if key in table else quantize_kernel(
                 conv.weight)
-            self.sites[key] = (conv, Int8Site(conv, scales[key], q, sw))
+            self.sites[key] = (conv, Int8Site(q, sw, scales[key], stride,
+                                              conv.bias, conv.weight.device))
 
     def __enter__(self):
         for conv, site in self.sites.values():
             conv.forward = site
+        for head, sites in self.merged.values():
+            head.merged_hook = sites
         return self
 
     def __exit__(self, *exc):
         for conv, _ in self.sites.values():
             del conv.forward
+        for head, _ in self.merged.values():
+            head.merged_hook = None
         return False

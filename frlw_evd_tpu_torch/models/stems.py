@@ -14,6 +14,12 @@ blocks [tl, bl, tr, br], and `BinsFusionModuleFolded` its folded form
 `BinsFusionModule` under the same state_dict names and shapes, so one
 checkpoint serves them all.
 
+`TemporalActiveFocus` ("taf": grouped weight-norm 1x1 convs at full width,
+then the fused patchify + 3x3 conv) and `TemporalActiveFocus3D` ("taf_3d":
+grouped 3x3 BaseConvs, fused by a 1x1 BaseConv with dropout 0.25, also
+SwinDarknet's stem2) are the reference's other TAF stems; the swin and
+correlation stems live in swin3d.py.
+
 `BinsFusionModule` and `BinsFusionModulePatched` train, with the stem's
 dropout. The stems whose chain runs in kernel B4 or B7 serve only: like
 the JAX package, which cannot differentiate a `pallas_call`, they raise in
@@ -28,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BaseConv, get_activation
+from .blocks import BaseConv, Dropout, get_activation
 from .stem_chain import bfm_chain_apply, bfm_chain_apply_folded
 
 S = 4                # subpixel blocks of a patchified pixel
@@ -82,32 +88,6 @@ class TiledConv1x1(nn.Module):
     def forward(self, x):
         return F.conv2d(x, self.weight.repeat(self.tile, 1, 1, 1),
                         self.bias.repeat(self.tile), groups=self.tile)
-
-
-class Dropout(nn.Module):
-    """flax's nn.Dropout (stems.py:124, :126): in training, each element
-    is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
-    zeroed; the identity at eval or at rate 0. The masks come from
-    `generator`, a torch.Generator on the input's device that the train
-    step sets (F.dropout takes none), so one seed gives one set of masks."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-        self.generator: torch.Generator | None = None
-
-    def forward(self, x):
-        if not self.training or self.rate == 0.0:
-            return x
-        if self.generator is None:
-            raise RuntimeError("Dropout in training needs its generator set "
-                               "(the train step sets it)")
-        keep = 1.0 - self.rate
-        # the uniforms in x's memory layout (channels_last on the card),
-        # so the select runs as one contiguous pass
-        u = torch.empty_like(x, dtype=torch.float32)
-        mask = u.uniform_(generator=self.generator) < keep
-        return torch.where(mask, x / keep, 0.0)
 
 
 class _BFMChain(nn.Module):
@@ -298,3 +278,65 @@ class FocusPatched(nn.Module):
     def forward(self, x):
         """x: (N, H/2, W/2, 4C) → (N, out, H/2, W/2)."""
         return self.conv(_nchw(x))
+
+
+class TemporalActiveFocus(nn.Module):
+    """Temporal_Active_Focus stem (stems.py:369-392): log2(K) grouped
+    weight-norm 1x1 convs keeping all 2K channels (groups K/2, K/4, ...,
+    the last dense), each followed by relu, then patchify + 3x3 BaseConv,
+    run as the fused 6x6 stride-2 conv with the canonical (O, 4*2K, 3, 3)
+    weight, as Focus. in_channels is 2K."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
+                 act: str = "silu"):
+        super().__init__()
+        if ksize != 3:
+            raise ValueError("the port's TAF stem is the fused ksize=3 form")
+        tc = in_channels // 2
+        self.levels = int(log2(tc))
+        for i in range(self.levels):
+            groups = tc // 2 ** (i + 1) if i < self.levels - 1 else 1
+            self.add_module(f"convs_{i}", WeightNormConv1x1(
+                in_channels, in_channels, groups=groups))
+        self.conv = BaseConv(in_channels, out_channels, 3, act=act,
+                             patchify_fused=True)
+
+    def forward(self, x):
+        """x: (N, H, W, 2K) → (N, out, H/2, W/2)."""
+        h = _nchw(x)
+        for i in range(self.levels):
+            h = F.relu(getattr(self, f"convs_{i}")(h))
+        return self.conv(h)
+
+
+class TemporalActiveFocus3D(nn.Module):
+    """Temporal_Active_Focus_3D stem (stems.py:395-430): grouped 3x3
+    BaseConvs with a bias, the first at stride 2 with K/2 groups of
+    K/2 * embed_dim channels, each next one halving groups and channels;
+    the first embed_dim channels of each level are concatenated and fused
+    by a 1x1 BaseConv with dropout 0.25 between its BatchNorm and its
+    activation (`conv2`). in_channels is 2K; ksize is unused, as in JAX."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
+                 act: str = "silu", embed_dim: int = 32):
+        super().__init__()
+        tc = in_channels // 2
+        self.levels = int(log2(tc))
+        self.embed_dim = embed_dim
+        cin = in_channels
+        for i in range(self.levels):
+            groups = tc // 2 ** (i + 1)
+            self.add_module(f"convs_{i}", BaseConv(
+                cin, groups * embed_dim, 3, 2 if i == 0 else 1,
+                groups=groups, bias=True, act=act))
+            cin = groups * embed_dim
+        self.conv2 = BaseConv(self.levels * embed_dim, out_channels, 1,
+                              act=act, dropout=0.25)
+
+    def forward(self, x):
+        """x: (N, H, W, 2K) → (N, out, H/2, W/2)."""
+        h, outs = _nchw(x), []
+        for i in range(self.levels):
+            h = getattr(self, f"convs_{i}")(h)
+            outs.append(h[:, :self.embed_dim])
+        return self.conv2(torch.cat(outs, dim=1))

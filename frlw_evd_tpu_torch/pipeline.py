@@ -70,6 +70,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def channels_last_(model: torch.nn.Module) -> torch.nn.Module:
+    """Lay each 4-D parameter and buffer of `model` out channels_last, in
+    place, and leave the others (model.to(memory_format=...) refuses the
+    5-D Conv3d weight of the swin stem's patch embedding)."""
+    for t in (*model.parameters(), *model.buffers()):
+        if t.dim() == 4:
+            t.data = t.data.contiguous(memory_format=torch.channels_last)
+    return model
+
+
 def nearest_resize(vol, ys, xs):
     """(B, h, w, C) → (B, len(ys), len(xs), C) as two index selects
     (bench.py:197-206)."""
@@ -83,14 +93,15 @@ def _serving_model(model: EventDetector, device, dtype) -> torch.device:
     dev = resolve_device(device)
     model.to(device=dev, dtype=dtype).eval()
     if dev.type == "cuda":
-        model.to(memory_format=torch.channels_last)
+        channels_last_(model)
     return dev
 
 
 def _attach_stages(encode_transform, model: EventDetector, quant=None):
     """run_step with the encode_transform and detect stages; detect runs
     the forward under int8_ctx(model, *quant) when `quant` is given
-    (bench.py:156-175) and decodes the head outputs in f32 (bench.py:170)."""
+    (bench.py:156-175; the context is `run_step.int8`) and decodes the head
+    outputs in f32 (bench.py:170)."""
     ctx = int8_ctx(model, *(quant or (None, None)))  # no sites: a no-op
 
     @torch.inference_mode()
@@ -105,6 +116,7 @@ def _attach_stages(encode_transform, model: EventDetector, quant=None):
         return state_f, detect(vol)
 
     run_step.stages = {"encode_transform": encode_transform, "detect": detect}
+    run_step.int8 = ctx
     return run_step
 
 

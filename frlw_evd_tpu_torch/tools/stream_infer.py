@@ -30,7 +30,8 @@ from ..events import PSEELoader
 from ..models import build_detector, eval_decode
 from ..models.postprocess import finalize_detections, postprocess_batch
 from ..models.seq_nms import SeqNMSState
-from ..pipeline import STRIDES, nearest_resize, resolve_device
+from ..pipeline import (STRIDES, channels_last_, nearest_resize,
+                        resolve_device)
 from .generate_common import GEOMETRY
 
 BIN_US = 10_000
@@ -61,7 +62,7 @@ def load_model(num_classes: int, checkpoint=None, *, device="cuda"):
         model.load_state_dict(ckpt["model"])
     model.to(device=dev, dtype=torch.float32).eval()
     if dev.type == "cuda":
-        model.to(memory_format=torch.channels_last)
+        channels_last_(model)
     return model
 
 

@@ -45,15 +45,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..data import Loader, PropheseeDataset, PropheseeTafDataset
 from ..evaluate import Evaluator, Recorder
-from ..models.blocks import BatchNorm2d, space_to_depth_patches
+from ..models.blocks import (BatchNorm2d, Dropout,
+                             space_to_depth_patches)
 from ..models.detector import (build_detector, build_memory_detector,
                                detector_loss, eval_decode, init_parameters_)
 from ..models.postprocess import finalize_detections, postprocess_batch
 from ..models import red
 from ..models.yolov3 import (YOLOv3Detector, gt_creator, yolov3_eval_decode,
                              yolov3_loss)
-from ..models.stems import Dropout
-from ..pipeline import resolve_device
+from ..pipeline import channels_last_, resolve_device
 from .checkpoints import (load_checkpoint, save_checkpoint,
                           save_part_checkpoints)
 from .config import ExpConfig
@@ -128,7 +128,7 @@ def create_train_state(model: nn.Module, tx: Tx, *,
     dev = resolve_device(device)
     model.to(device=dev, dtype=torch.float32).train()
     if dev.type == "cuda":
-        model.to(memory_format=torch.channels_last)
+        channels_last_(model)
     return TrainState(0, model, tx.make(model.named_parameters()),
                       tx.schedule)
 

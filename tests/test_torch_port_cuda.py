@@ -379,12 +379,11 @@ def test_int8_site_matches_twin_bit_for_bit(cuda, k, stride, cin, cout, h,
     inv: bf16 outputs equal bit for bit, on two calls of one map; one
     launch a call."""
     g = torch.Generator(device=cuda).manual_seed(k * 1000 + cin + cout + 7)
-    conv = torch.nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=bias,
-                           device=cuda)
     q = torch.randint(-127, 128, (cout, cin, k, k), device=cuda,
                       generator=g, dtype=torch.int8)
     sw = torch.rand(cout, device=cuda, generator=g) * 1e-2
-    site = quantize.Int8Site(conv, 5.0 / 127.0, q, sw)
+    b = (torch.randn(cout, device=cuda, generator=g) if bias else None)
+    site = quantize.Int8Site(q, sw, 5.0 / 127.0, stride, b)
     before = int8_conv2d.launches
     for seed in range(2):
         x = (2.0 * torch.randn(3, cin, h, w, device=cuda, generator=g)).to(
@@ -397,6 +396,40 @@ def test_int8_site_matches_twin_bit_for_bit(cuda, k, stride, cin, cout, h,
         assert torch.equal(out, p_out)
     assert int8_conv2d.launches == before + 2
     assert (out.abs() > 0).any()
+
+
+@pytest.mark.parametrize("width,h,w", [(256, 32, 40), (64, 9, 7)])
+def test_merged_int8_sites_match_twin_bit_for_bit(cuda, width, h, w):
+    """The merged head's int8 sites (quantize.MergedSites): layer 0 one
+    site of Cout 2W on the shared input, layer 1 one site a group on its
+    own channel half (a strided slice of the channels_last input, copied
+    to a contiguous one before the launch); each launch bit for bit its
+    twin, the hook's output their concatenation; three launches a level's
+    towers."""
+    from frlw_evd_tpu_torch.models.heads import YOLOXHead
+    head = YOLOXHead(2, (width,), strides=(8,), width=width,
+                     merged=True).to(cuda).eval()
+    keys = [key for layer in (0, 1)
+            for key in quantize.tower_keys("head", 0, layer)]
+    scales = dict(zip(keys, (3.0 / 127, 5.0 / 127, 2.0 / 127, 4.0 / 127)))
+    sites = quantize.MergedSites("head", head, scales, {})
+    assert sites.sites[0, 0][0].wq.shape[0] == 2 * width
+    g = torch.Generator(device=cuda).manual_seed(width + h)
+    before = int8_conv2d.launches
+    for layer, cin in ((0, width), (1, 2 * width)):
+        x = (2.0 * torch.randn(3, cin, h, w, device=cuda, generator=g)).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        out = sites(0, layer, x)
+        parts = quantize.merged_parts(x, layer)[:len(sites.sites[0, layer])]
+        want = torch.cat([int8_conv2d_plain(p, s.wq, s.scale, s.inv)
+                          for s, p in zip(sites.sites[0, layer], parts)],
+                         dim=1)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == (3, 2 * width,
+                                                             h, w)
+        assert torch.equal(out, want), layer
+        assert (out.abs() > 0).any()
+    assert int8_conv2d.launches == before + 3
 
 
 def test_int8_conv_wrapper_raises(cuda):

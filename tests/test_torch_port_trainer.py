@@ -269,13 +269,21 @@ def test_train_epoch_and_resume(tree, tmp_path, use_ema):
 
 @pytest.mark.parametrize("field,value,model", [
     ("family", "yolov3", "YOLOv3Detector"), ("family", "red", "REDDetector"),
-    ("memory", "convlstm", "MemoryEventDetector")])
+    ("memory", "convlstm", "MemoryEventDetector"),
+    ("exp_type", "taf_swin", "EventDetector"),
+    ("exp_type", "taf_corr", "EventDetector"),
+    ("exp_type", "taf_syn", "EventDetector")])
 def test_trainer_builds_the_family(tree, tmp_path, field, value, model):
     """The Trainer builds the model of the config's family (JAX
     trainer.py:329-357): the yolov3 detector with the BFM stem for stem
-    bfm, RED, the memory detector with ConvLSTM cells over in_channels."""
-    cfg = make_config("taf_bfm", **_cfg_kw(tree, tmp_path))
-    setattr(cfg, field, value)
+    bfm, RED, the memory detector with ConvLSTM cells over in_channels;
+    the experimental exp types' AED with the swin or the correlation stem,
+    and taf_syn's SwinDarknet (JAX config.py:140-142)."""
+    if field == "exp_type":
+        cfg = make_config(value, **_cfg_kw(tree, tmp_path))
+    else:
+        cfg = make_config("taf_bfm", **_cfg_kw(tree, tmp_path))
+        setattr(cfg, field, value)
     built = Trainer(cfg, device="cpu").model
     assert type(built).__name__ == model
     assert built.training
@@ -283,6 +291,24 @@ def test_trainer_builds_the_family(tree, tmp_path, field, value, model):
         assert type(built.backbone.layer_1).__name__ == "BinsFusionModule"
     if value == "convlstm":
         assert built.memory.lstms_2.hidden_dim == cfg.in_channels[2]
+    if field == "exp_type":
+        backbone, stem = {
+            "taf_swin": ("Darknet", "TemporalActiveFocusSwin"),
+            "taf_corr": ("Darknet", "TemporalActiveFocusCorr"),
+            "taf_syn": ("SwinDarknet", "Focus")}[value]
+        assert type(built.backbone).__name__ == backbone
+        assert type(built.backbone.stem).__name__ == stem
+
+
+def test_trainer_builds_every_jax_exp_type(tree, tmp_path):
+    """Every exp type of JAX's EXP_TYPES (config.py:125-143) is the
+    port's, and the port's Trainer builds each one's model."""
+    from frlw_evd_tpu.train.config import EXP_TYPES as J_EXP_TYPES
+    from frlw_evd_tpu_torch.train.config import EXP_TYPES
+    assert EXP_TYPES == J_EXP_TYPES
+    for exp_type in J_EXP_TYPES:
+        cfg = make_config(exp_type, **_cfg_kw(tree, tmp_path))
+        assert Trainer(cfg, device="cpu").model.training, exp_type
 
 
 def test_trainer_asks_for_the_card(tree, tmp_path, monkeypatch):
