@@ -223,7 +223,31 @@ Phases (any failure exits non-zero; no phase catches and continues):
  40. card against CPU, small, f32 with TF32 off: phase 37's check of
      taf_swin, taf_corr and taf_syn; phase 19's train-step check of the
      small AED with the taf stem, the taf_3d stem and the merged head;
-     MBV2CA's logits and one train step.
+     MBV2CA's logits and one train step;
+ 41. parallel/spatial.py at full width, 4 row shards run one after
+     another on the card: the gen4 p64 step (B = 128, E = 65536, K = 8)
+     raw (B1 in the p64 order, then B3) and sorted (then B5) over three
+     windows (one with events in shard 0's rows only, one empty), each
+     shard's state and folded volume bit for bit the unsharded step's
+     rows, B1 and B3 or B5 launched 4 times a window; the GEN1 step
+     (B = 128, E = 16384) with B6 and the 2-D layout (2 batch halves x
+     2 row shards), likewise; device ms of the shards and the unsharded
+     step;
+ 42. data-parallel training: gen1_train through run_train at world size
+     1 under NCCL in a subprocess with torchrun's environment (ms/step
+     beside phase 17's); one Adam step of gen1_train's AED at world size
+     2 over gloo on the one card (32 rows a rank) against world size 1 on
+     the 64 rows (f32 losses rtol 2e-4 and statistics 1e-5; in f64 the
+     parameters 1e-5 and the gradients 1e-6);
+     cli.train at world size 2 over gloo for one Trainer epoch of
+     taf_bfm on phase 28's blobs (the checkpoint, finite COCO stats, no
+     kernel launched);
+ 43. tools/export_model.py in a subprocess on phase 22's AED saved as a
+     checkpoint (the full-width GEN1 AED, B = 128), bf16 and --fuse
+     --int8, each with --check; each .pt2 loaded here and held to the live step built the
+     same way (keep equal, dets within 1e-5), int8_conv2d launched 61
+     times a call of the int8 program; windows/s of the loaded program
+     and the live step in turns.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
@@ -240,6 +264,7 @@ import ast
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -3727,6 +3752,364 @@ def check_new_modules_against_cpu(train, build_detector, dev):
         raise SystemExit("MBV2CA small step: card and CPU disagree")
 
 
+SPATIAL_SHARDS = 4
+SPATIAL_WINDOWS = 3
+DP_STEPS = 10                 # timed gen1_train steps at world size 1
+B3, B5 = "taf_update_leaky_raw", "taf_update_leaky_v2"
+
+
+def spatial_windows(pipeline, rng, e_per_bin, sensor, n_shards, dev):
+    """SPATIAL_WINDOWS windows on the card: a uniform one; a uniform one
+    whose events all lie in shard 0's rows (the other shards' rows see
+    none, and must age with the frame); an empty one (n_valid 0)."""
+    ev, nv = pipeline.synth_events(rng, 1, B, e_per_bin, sensor)
+    first = (torch.from_numpy(ev[0]).to(dev), torch.from_numpy(nv[0]).to(dev))
+    ev, nv = pipeline.synth_events(rng, 1, B, e_per_bin, sensor)
+    ev[0, ..., 1] = np.floor(ev[0, ..., 1]) % (sensor[0] // n_shards)
+    second = (torch.from_numpy(ev[0]).to(dev),
+              torch.from_numpy(nv[0]).to(dev))
+    empty = (first[0].clone(), torch.zeros_like(first[1]))
+    return [first, second, empty]
+
+
+def _sharded_run(counters, steps, shards, windows, compare):
+    """Run the shards' steps over the windows, one shard after another,
+    each window's launches counted from 0 just before its shards and read
+    just after (the unsharded reference runs outside the count); after
+    each window `compare(window index, shard outputs)`. Returns the
+    launches summed over the windows."""
+    total = Counter()
+    for i, (ev, nv) in enumerate(windows):
+        for fn in counters.values():
+            fn.launches = 0
+        outs = [step(shards[s], ev, nv) for s, step in enumerate(steps)]
+        torch.cuda.synchronize()
+        total.update({k: fn.launches for k, fn in counters.items()})
+        shards[:] = [o[0] if isinstance(o, tuple) else o for o in outs]
+        compare(i, outs)
+    return {k: total[k] for k in counters}
+
+
+def run_spatial_steps(enc, pipeline, counters, dev, card):
+    """Phase 41: parallel/spatial.py at full width, the shards run one
+    after another on the card. gen4 p64 (512x640, B = 128, E = 65536,
+    K = 8) in SPATIAL_SHARDS row shards, raw (B1 in the p64 order, then
+    B3) and sorted (the plain sorted histogram, then B5), over
+    spatial_windows: each shard's state and folded volume equal to the
+    unsharded step's rows bit for bit, B1 and B3 or B5 launched
+    SPATIAL_SHARDS times a window; device ms of the shards against the
+    unsharded step. GEN1 (B = 128, E = 16384, the unpacked K = 8 queue)
+    through make_spatial_taf_step with B6, and the 2-D layout (2 batch
+    halves x 2 row shards), each bit for bit the unsharded step. Returns
+    each sharded path's launches."""
+    from frlw_evd_tpu_torch.parallel import spatial
+
+    H, W = GEN4_SENSOR
+    n = SPATIAL_SHARDS
+    by_path = {}
+    windows = spatial_windows(pipeline, np.random.default_rng(12), E4,
+                              GEN4_SENSOR, n, dev)
+    for scatter, name, need in (("pallas", "spatial_gen4_raw", (B1, B3)),
+                                ("sorted", "spatial_gen4_sorted", (B5,))):
+        ref = enc.p64_init_state(B, H, W, K, device=dev)
+        shards = [spatial.shard_taf_state_p64(ref, n, s) for s in range(n)]
+        steps = [spatial.make_spatial_taf_step_p64(H, W, n, s,
+                                                   scatter=scatter)
+                 for s in range(n)]
+        refs = []
+        for ev, nv in windows:
+            ref, vol = enc.taf_stream_step_kernel_p64(
+                ref, ev, nv, height=H, width=W, scatter=scatter,
+                fold_output=True)
+            refs.append((ref.clone(), vol))
+
+        def compare(i, outs):
+            state = torch.cat([o[0] for o in outs], 1)
+            vol = torch.cat([o[1] for o in outs], 1)
+            if not (torch.equal(state, refs[i][0])
+                    and torch.equal(vol, refs[i][1])):
+                raise SystemExit(
+                    f"{name} window {i}: shards differ from the unsharded "
+                    f"step by {(state - refs[i][0]).abs().max().item():.3e}"
+                    f" (state), {(vol.float() - refs[i][1].float()).abs()
+                                 .max().item():.3e} (volume)")
+
+        launches = _sharded_run(counters, steps, shards, windows, compare)
+        by_path[name] = launches
+        if any(launches[k] != n * len(windows) for k in need):
+            raise SystemExit(f"{name}: {need} must launch {n} times a "
+                             f"window: {launches}")
+        ev, nv = windows[0]
+        ms_sharded = time_ms(lambda: [step(shards[s], ev, nv)
+                                      for s, step in enumerate(steps)], n=5)
+        ms_whole = time_ms(lambda: enc.taf_stream_step_kernel_p64(
+            ref, ev, nv, height=H, width=W, scatter=scatter,
+            fold_output=True), n=5)
+        log(f"{name} on {card}: {n} shards of {H // n} rows bit for bit "
+            f"the unsharded step on {len(windows)} windows (one with events "
+            f"in shard 0's rows only, one empty); {ms_sharded:.3f} ms a "
+            f"window for the {n} shards one after another against "
+            f"{ms_whole:.3f} ms unsharded; launches "
+            + ", ".join(f"{k} {launches[k]}" for k in need))
+        del ref, refs, shards
+        torch.cuda.empty_cache()
+
+    H, W = GEN1_SENSOR
+    windows = spatial_windows(pipeline, np.random.default_rng(13), E,
+                              GEN1_SENSOR, n, dev)
+    refs, ref = [], torch.full((B, H, W, 2, K), -6000.0, device=dev)
+    for ev, nv in windows:
+        refs.append(enc.taf_stream_step(ref, ev, nv, use_mxu=True).clone())
+    for name, n_b, n_h in (("spatial_gen1", 1, n), ("spatial_gen1_2d", 2, 2)):
+        whole = torch.full((B, H, W, 2, K), -6000.0, device=dev)
+        tiles = [(b, h) for b in range(n_b) for h in range(n_h)]
+        rows = [slice(b * B // n_b, (b + 1) * B // n_b) for b, _ in tiles]
+        shards = [spatial.shard_taf_state(whole[r], n_h, h)
+                  for r, (_, h) in zip(rows, tiles)]
+        base = [spatial.make_spatial_taf_step(H, n_h, h, use_mxu=True)
+                for _, h in tiles]
+        steps = [(lambda st, ev, nv, f=f, r=r: f(st, ev[r].contiguous(),
+                                                 nv[r].contiguous()))
+                 for f, r in zip(base, rows)]
+
+        def compare(i, outs):
+            got = torch.cat([torch.cat(outs[b * n_h:(b + 1) * n_h], 1)
+                             for b in range(n_b)], 0)
+            if not torch.equal(got, refs[i]):
+                raise SystemExit(f"{name} window {i}: tiles differ from the "
+                                 f"unsharded step by "
+                                 f"{(got - refs[i]).abs().max().item():.3e}")
+
+        launches = _sharded_run(counters, steps, shards, windows, compare)
+        by_path[name] = launches
+        if launches[B6] != len(tiles) * len(windows):
+            raise SystemExit(f"{name}: B6 must launch once a tile a window: "
+                             f"{launches}")
+        ev, nv = windows[0]
+        ms_sharded = time_ms(lambda: [step(shards[s], ev, nv)
+                                      for s, step in enumerate(steps)], n=5)
+        log(f"{name} on {card}: {n_b} x {n_h} tiles bit for bit the "
+            f"unsharded step on {len(windows)} windows; {ms_sharded:.3f} ms "
+            f"a window for the tiles one after another; B6 {launches[B6]}")
+    ev, nv = windows[0]
+    ms_whole = time_ms(lambda: enc.taf_stream_step(ref, ev, nv,
+                                                   use_mxu=True), n=5)
+    log(f"unsharded GEN1 step on {card}: {ms_whole:.3f} ms a window")
+    del refs, ref, windows
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def run_data_parallel(data, counters, dev, card, synthetic_train):
+    """Phase 42: data-parallel training (parallel/dist.py, check.py).
+    World size 1 under NCCL, in a subprocess with torchrun's environment:
+    gen1_train through run_train (bf16 over f32 masters), ms/step beside
+    phase 17's. World size 2 over gloo, both ranks on this card (NCCL
+    refuses two ranks on one GPU): one Adam step of gen1_train's AED
+    (TF32 off, dropout 0) at 32 rows a rank against world size 1 in this
+    process on the 64 rows, in f32 and in f64: the f32 losses within rtol
+    2e-4 and BatchNorm statistics within 1e-5; with the network in f64
+    the parameters after the step within 1e-5 and the gradients within
+    1e-6 of each leaf's largest (phase 19's gates; in f32 Adam's first
+    update moves an element whose gradient is at its rounding noise by
+    +-lr, so the f32 parameters are printed, not gated). Then cli.train at world
+    size 2 over gloo for one Trainer epoch of taf_bfm on phase 28's TAF
+    blobs at batch TREE_BATCH: the checkpoint written once, every COCO
+    stat finite, no kernel launched."""
+    from frlw_evd_tpu_torch.parallel import check
+
+    out = WORK / "dp"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    check.spawn(1, ["--out", str(out / "w1"), "--device", "cuda",
+                    "--cases", "", "--time_gen1", str(DP_STEPS)],
+                timeout=600)
+    w1 = torch.load(out / "w1" / "rank0.pt", weights_only=False)
+    rep = w1["time_gen1"]
+    if not all(np.isfinite(v) for lo in rep["losses"] for v in lo.values()):
+        raise SystemExit(f"world 1 gen1_train: non-finite losses")
+    log(f"gen1_train at world size 1 under NCCL on {card}: "
+        f"{rep['ms_per_step']:.2f} ms/step at batch {rep['batch']}, "
+        f"{rep['windows_per_s']:.1f} windows/s, peak memory "
+        f"{rep['peak_bytes'] / 2**30:.2f} GiB (the group BatchNorm's two "
+        f"all-reduces a BatchNorm, one gradient all-reduce a step); phase "
+        f"17 without a group {synthetic_train['ms_per_step']:.2f} ms/step "
+        f"(subprocess {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    check.spawn(2, ["--out", str(out / "w2"), "--device", "cuda",
+                    "--backend", "gloo", "--cases", "gen1"],
+                local_rank_zero=True, timeout=600)
+    ranks = [torch.load(out / "w2" / f"rank{r}.pt", weights_only=False)
+             ["gen1"] for r in range(2)]
+    wall = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    want = check.run_case("gen1", dev)
+    torch.cuda.synchronize()
+    if any(fn.launches for fn in counters.values()):
+        raise SystemExit("the world-1 gen1 step launched a kernel")
+    err = {"losses": 0.0, "statistics": 0.0, "parameters": 0.0,
+           "gradients": 0.0, "residue": 0.0, "f32_parameters": 0.0}
+    top = max(g.abs().max().item() for g in want["f64"]["grads"].values())
+    for got in ranks:
+        f32, f64 = got["f32"], got["f64"]
+        err["losses"] = max(err["losses"], max(
+            abs(f32["losses"][k] / v - 1)
+            for k, v in want["f32"]["losses"].items() if v))
+        for k, v in want["f32"]["state"].items():
+            key = "statistics" if k.endswith(STATS) else "f32_parameters"
+            err[key] = max(err[key], (f32["state"][k] - v).abs().max().item())
+        for k, v in want["f64"]["state"].items():
+            if not k.endswith(STATS):
+                err["parameters"] = max(err["parameters"], (
+                    f64["state"][k] - v).abs().max().item())
+        for k, g in want["f64"]["grads"].items():
+            m, diff = g.abs().max().item(), (f64["grads"][k] - g).abs().max()
+            if m > GRAD_FLOOR * top:
+                err["gradients"] = max(err["gradients"], diff.item() / m)
+            else:
+                err["residue"] = max(err["residue"], diff.item() / top)
+    log(f"world size 2 over gloo on {card} against world size 1 on the 64 "
+        f"rows (one Adam step of gen1_train's AED, dropout 0, TF32 off): "
+        f"in f32 losses {err['losses']:.2e} (rtol 2e-4), statistics "
+        f"{err['statistics']:.2e} (1e-5), parameters "
+        f"{err['f32_parameters']:.2e} (no gate: Adam's first update moves "
+        f"an element whose gradient is at its f32 noise by +-lr); in f64 "
+        f"parameters {err['parameters']:.2e} (1e-5), gradients "
+        f"{err['gradients']:.2e} of each leaf's largest (1e-6), residue "
+        f"{err['residue']:.2e} (1e-12); both ranks {wall:.1f} s")
+    if (err["losses"] > 2e-4 or err["statistics"] > 1e-5
+            or err["parameters"] > 1e-5 or err["gradients"] > 1e-6
+            or err["residue"] > 1e-12):
+        raise SystemExit(f"world 2 against world 1: {err}")
+
+    cli = (f"--exp_type taf_bfm --dataset gen1 --batch_size {TREE_BATCH} "
+           f"--event_volume_bins {K} --max_epoch_to_stop 1 "
+           f"--data_path {data['taf_dir']} "
+           f"--bbox_path {data['tree']['labels']} "
+           f"--log_path {out / 'log'} --exp_name dp2 --dist_backend gloo")
+    t0 = time.perf_counter()
+    check.spawn(2, ["--out", str(out / "cli"), "--device", "cuda",
+                    "--backend", "gloo", "--cases", "cli", "--cli", cli],
+                local_rank_zero=True, timeout=900)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out / "cli" / f"rank{r}.pt", weights_only=False)
+             ["cli"] for r in range(2)]
+    for r in ranks:
+        if any(r["launches"].values()):
+            raise SystemExit(f"the world-2 Trainer launched a kernel: "
+                             f"{r['launches']}")
+        if r["stats"] is None or not all(np.isfinite(r["stats"])):
+            raise SystemExit(f"world-2 COCO stats: {r['stats']}")
+    ckpts = sorted(os.listdir(out / "log" / "dp2" / "checkpoints"))
+    if "last_epoch" not in ckpts or ranks[0]["stats"] != ranks[1]["stats"]:
+        raise SystemExit(f"world-2 epoch: checkpoints {ckpts}, stats "
+                         f"{[r['stats'] for r in ranks]}")
+    h = ranks[0]["history"][0]
+    log(f"cli.train at world size 2 over gloo on {card}: {h['steps']} "
+        f"steps at global batch {TREE_BATCH} ({TREE_BATCH // 2} a rank), "
+        f"{h['wall_s'] / h['steps'] * 1e3:.1f} ms/step, loader wait "
+        f"{h['loader_wait_s'] / h['wall_s']:.1%}; COCO stats "
+        + ", ".join(f"{v:.4f}" for v in ranks[0]["stats"])
+        + f"; checkpoints {ckpts}; no kernel launched; {wall:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+EXPORT_TIMED = 10
+INT8_SITES_GEN1 = 61
+
+
+def run_export(counters, dev, card):
+    """Phase 43: tools/export_model.py in a subprocess at B = 128 on phase
+    22's AED (int8_gen1_model: the full-width GEN1 taf_bfm AED, weights
+    spread so that boxes pass conf 0.3), saved as a checkpoint, bf16 and
+    --fuse --int8, each with --check; then each .pt2 loaded here: the
+    int8 program launches int8_conv2d INT8_SITES_GEN1 times a call, and
+    keep and dets match the live step built here the same way (keep
+    equal, dets within atol 1e-5); windows/s of the loaded program and
+    the live step, EXPORT_TIMED calls each, in turns (live, loaded,
+    loaded, live). Returns the launches of the loaded programs' calls."""
+    from frlw_evd_tpu_torch import pipeline
+    from frlw_evd_tpu_torch.models import build_detector
+    from frlw_evd_tpu_torch.tools import export_model as ex
+
+    out = WORK / "export"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ckpt = str(out / "gen1_aed")
+    torch.save({"model": int8_gen1_model(build_detector, pipeline)
+                .state_dict()}, ckpt)
+    by_path = {}
+    vol = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (B, *GEN1_INPUT, 2 * K)).astype(np.float32)).to(dev)
+    exports = {name: flags for name, flags in (
+        ("export_bf16", []), ("export_int8", ["--fuse", "--int8"]))}
+    procs, t_start = {}, time.perf_counter()
+    for name, flags in exports.items():     # both exports at once
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "frlw_evd_tpu_torch.tools.export_model",
+             "--out", str(out / f"{name}.pt2"), "--exp_type", "taf_bfm",
+             "--dataset", "gen1", "--batch", str(B), "--ckpt", ckpt,
+             "--check", *flags], cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, flags in exports.items():
+        path = out / f"{name}.pt2"
+        stdout, stderr = procs[name].communicate(timeout=900)
+        if (procs[name].returncode != 0
+                or "roundtrip check ok" not in stdout):
+            raise SystemExit(f"{name} failed:\n{stdout}\n{stderr}")
+        export_s = time.perf_counter() - t_start
+        cfg = ex.config("taf_bfm", "gen1")
+        live, shape, n_sites = ex.build_serving_fn(
+            cfg, ex.build_model(cfg, ckpt), B, device=dev,
+            fuse=bool(flags), int8=bool(flags))
+        program = torch.export.load(str(path)).module()
+        with torch.no_grad():
+            want = live(vol)
+            for fn in counters.values():
+                fn.launches = 0
+            got = program(vol)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+        by_path[name] = launches
+        sites = INT8_SITES_GEN1 if flags else 0
+        if n_sites != sites or launches["int8_conv2d"] != sites or any(
+                v for k, v in launches.items() if k != "int8_conv2d"):
+            raise SystemExit(f"{name}: {n_sites} sites, launches {launches}")
+        err = (got[0] - want[0]).abs().max().item()
+        if (not torch.equal(got[1], want[1]) or not err <= 1e-5
+                or not 0 < int(want[1].sum()) < int((want[0][..., 5] > 0)
+                                                    .sum())):
+            raise SystemExit(f"{name}: loaded program against the live "
+                             f"step: dets {err}, keep equal "
+                             f"{torch.equal(got[1], want[1])}, "
+                             f"{int(want[1].sum())} kept")
+        rates = {"live": [], "loaded": []}
+        with torch.no_grad():
+            for which in ("live", "loaded", "loaded", "live"):
+                fn = live if which == "live" else program
+                fn(vol)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EXPORT_TIMED):
+                    fn(vol)
+                torch.cuda.synchronize()
+                rates[which].append(B * EXPORT_TIMED
+                                    / (time.perf_counter() - t0))
+        log(f"{name} on {card}: exported and checked in a subprocess (the "
+            f"two at once) within {export_s:.1f} s ({path.stat().st_size / 1e6:.1f} MB); loaded "
+            f"program {' / '.join(f'{r:.1f}' for r in rates['loaded'])} "
+            f"windows/s against the live step "
+            f"{' / '.join(f'{r:.1f}' for r in rates['live'])} (B = {B}, in "
+            f"turns); int8_conv2d {launches['int8_conv2d']} a call; dets "
+            f"within {err:.1e}, keep equal ({int(want[1].sum())} kept)")
+        del live, program, want, got
+        torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3908,6 +4291,14 @@ def main() -> int:
           dev, card, name)
     phase(40, "new stems, SwinDarknet, MBV2CA, merged head small, card vs "
           "CPU", check_new_modules_against_cpu, train, build_detector, dev)
+    torch.cuda.empty_cache()
+    by_path.update(phase(41, "spatial TAF steps", run_spatial_steps, enc,
+                         pipeline, counters, dev, card))
+    torch.cuda.empty_cache()
+    phase(42, "data-parallel training", run_data_parallel, data, counters,
+          dev, card, synthetic_train["gen1_train"])
+    torch.cuda.empty_cache()
+    by_path.update(phase(43, "export", run_export, counters, dev, card))
     shutil.rmtree(WORK, ignore_errors=True)
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
@@ -3924,14 +4315,16 @@ def main() -> int:
                              "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_p64": ("scatter_cnt_tsum",
                                  ("gen4", "gen4_bfm_p64_kernel",
-                                  "gen4_int8", "gen4_p64k4_raw"),
+                                  "gen4_int8", "gen4_p64k4_raw",
+                                  "spatial_gen4_raw"),
                                  "frlw_evd_tpu_torch/csrc/scatter_hist.cu",
                                  "frlw_evd_tpu/encode/pallas_scatter.py:303"),
         "scatter_cnt_tsum_pallas_sorted": (
             "scatter_cnt_tsum_pallas_sorted",
             ("gen4_precise", "gen4_p64k4_precise", "gen1_unpacked_mxu",
              "gen1_packed_precise", "gen1_packed_mxu", "gen1_taf_dense",
-             "gen1_taf_p64", "stream_infer"),
+             "gen1_taf_p64", "stream_infer", "spatial_gen1",
+             "spatial_gen1_2d"),
             "frlw_evd_tpu_torch/csrc/scatter_sorted.cu",
             "frlw_evd_tpu/encode/pallas_scatter.py:343"),
         "scatter_cnt_tsum_pallas": ("scatter_cnt_tsum_pallas", ("gen1_b8",),
@@ -3947,11 +4340,12 @@ def main() -> int:
                              "frlw_evd_tpu/encode/pallas_update.py:37"),
         "taf_update_leaky_raw": ("taf_update_leaky_raw",
                                  ("gen4", "gen4_bfm_p64_kernel",
-                                  "gen4_int8"),
+                                  "gen4_int8", "spatial_gen4_raw"),
                                  "frlw_evd_tpu_torch/csrc/taf_update.cu",
                                  "frlw_evd_tpu/encode/pallas_update.py:233"),
         "taf_update_leaky_v2": ("taf_update_leaky_v2",
-                                ("gen4_sorted", "gen4_precise"),
+                                ("gen4_sorted", "gen4_precise",
+                                 "spatial_gen4_sorted"),
                                 "frlw_evd_tpu_torch/csrc/taf_update.cu",
                                 "frlw_evd_tpu/encode/pallas_update.py:143"),
         "bfm_chain_apply_folded": ("bfm_chain_apply_folded",
@@ -3963,7 +4357,7 @@ def main() -> int:
                             "frlw_evd_tpu_torch/csrc/bfm_chain.cu",
                             "frlw_evd_tpu/models/pallas_stem.py:59"),
         "int8_conv2d": ("int8_conv2d", ("gen1_int8", "gen4_int8",
-                                        "gen1_merged_int8"),
+                                        "gen1_merged_int8", "export_int8"),
                         "frlw_evd_tpu_torch/csrc/int8_conv.cu",
                         "none (XLA conv, frlw_evd_tpu/models/quantize.py:283)"),
     }

@@ -11,7 +11,13 @@ Every kernel wrapper runs its plain-PyTorch twin for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 
 Entry points: the GEN1 and 1 Mpx TAF-K8 → AED serving paths,
-`pipeline.py`; the AED SimOTA training step, `train/`.
+`pipeline.py`; the AED SimOTA training step, `train/`; data-parallel
+training and the H-sharded TAF steps, `parallel/`; the exported serving
+step, `tools/export_model.py`. Importing the package registers its
+torch.library operators (`ops.py`), which a loaded `.pt2` calls.
 """
 
-__all__ = ["encode", "models", "pipeline", "train", "utils", "weights"]
+from . import ops  # noqa: F401  (registers frlw_evd_torch::int8_conv2d)
+
+__all__ = ["encode", "models", "ops", "parallel", "pipeline", "train",
+           "utils", "weights"]

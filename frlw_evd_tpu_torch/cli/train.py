@@ -8,13 +8,26 @@ trees of data/synthetic):
     python -m frlw_evd_tpu_torch.cli.train --exp_type taf_bfm \\
         --dataset gen1 --batch_size 64 --data_path <blob dir> \\
         --bbox_path <label dir> [--resume_exp NAME] [--device cpu]
+
+Data-parallel over N cards (NCCL; gloo with --device cpu), --batch_size
+the global batch, a multiple of N:
+
+    python -m torch.distributed.run --nproc_per_node=N \\
+        -m frlw_evd_tpu_torch.cli.train ... (the same flags)
+
+Under torchrun's environment (WORLD_SIZE set) the process joins the group
+first (parallel/dist.py); rank 0 logs to stdout and to
+<log_path>/<exp>/file_<stamp>_train_log.txt.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
+from ..parallel import dist
 from ..train import Trainer, make_config
+from ..utils.logger import setup_logger
 
 
 def parse_args(argv=None):
@@ -32,11 +45,14 @@ def parse_args(argv=None):
     parser.add_argument("--augmentation", type=lambda s: s != "False",
                         default=True)
     parser.add_argument("--nodes", type=int, default=1,
-                        help="accepted for recipe compatibility; one "
-                             "process trains on one device")
+                        help="accepted for recipe compatibility; the "
+                             "process count is torchrun's")
     parser.add_argument("--max_epoch_to_stop", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        help="under torchrun: nccl (the default on cuda) or "
+                             "gloo (the CPU, or ranks sharing one card)")
     parser.add_argument("--img_size", type=int, nargs=2, default=None,
                         metavar=("H", "W"),
                         help="network input (blob) size, for a geometry "
@@ -81,8 +97,25 @@ def main(argv=None):
     )
     if args.max_epoch_to_stop is not None:
         cfg.max_epoch_to_stop = args.max_epoch_to_stop
-    trainer = Trainer(cfg, device=args.device)
-    trainer.train()
+    device = args.device
+    owns_group = "WORLD_SIZE" in os.environ and not dist.initialized()
+    if "WORLD_SIZE" in os.environ:
+        device = dist.init_process_group(device, backend=args.dist_backend)
+    try:
+        trainer = Trainer(cfg, device=device)
+        # the run's log file beside its checkpoints, in the directory the
+        # Trainer made
+        exp_dir = os.path.join(cfg.log_path,
+                               cfg.exp_name or cfg.resume_exp or cfg.exp_type)
+        logger = setup_logger(exp_dir if os.path.isdir(exp_dir) else None,
+                              dist.rank(), "train_log.txt")
+        logger.info(f"{cfg.exp_type} on {dist.world()} x {device}, global "
+                    f"batch {cfg.batch_size}")
+        trainer.train()
+        logger.info("done")
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
     return trainer
 
 

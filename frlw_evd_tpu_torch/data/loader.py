@@ -12,6 +12,12 @@ drop_last is False, as in the JAX package.
 Augmentation draws from the dataset's one `random.Random`: with more than
 one worker the draws interleave, so augmented samples match the JAX
 package's only with num_workers=1.
+
+With `shard` (rank, world) each batch of batch_size global rows yields
+only the rank's contiguous rows of it (parallel/dist.py's rows: equal
+shares when `drop_last`, else shares that differ by at most one row); a
+batch in which the rank holds no row yields None, so that the ranks'
+batches stay aligned.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  shuffle: bool = True, drop_last: bool = True,
-                 prefetch: int = 4, seed: int = 0, pin_memory: bool = False):
+                 prefetch: int = 4, seed: int = 0, pin_memory: bool = False,
+                 shard: tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -56,6 +63,12 @@ class Loader:
         self.pin_memory = pin_memory
         self.rng = np.random.default_rng(seed)
         self.epoch = 0
+        self.shard = shard
+        rank, world = shard
+        if drop_last and batch_size % world:
+            raise ValueError(f"a batch of {batch_size} rows does not shard "
+                             f"over {world} ranks; make the batch a "
+                             f"multiple of the world size")
 
     def __len__(self):
         n = len(self.dataset)
@@ -73,12 +86,15 @@ class Loader:
         rem = idx[n_full * self.batch_size:]
         if len(rem) and not self.drop_last:
             batches.append(rem)
-        return batches
+        rank, world = self.shard
+        return [b[rank * len(b) // world:(rank + 1) * len(b) // world]
+                for b in batches]
 
     def __iter__(self) -> Iterator:
         batches = self._batch_indices()
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        end = object()
 
         def produce():
             try:
@@ -87,8 +103,9 @@ class Loader:
                         if stop.is_set():
                             return
                         samples = list(pool.map(self.dataset.__getitem__, b))
-                        q.put(collate_batch(samples, self.pin_memory))
-                q.put(None)
+                        q.put(collate_batch(samples, self.pin_memory)
+                              if samples else None)
+                q.put(end)
             except BaseException as exc:   # surfaced in the consumer
                 q.put(exc)
 
@@ -97,7 +114,7 @@ class Loader:
         try:
             while True:
                 item = q.get()
-                if item is None:
+                if item is end:
                     break
                 if isinstance(item, BaseException):
                     raise item

@@ -4,7 +4,8 @@ NCHW `nn.Module`s. Submodule names follow the JAX package's flax names
 (`conv`, `bn`, `layer1`, `m_0`, ...), so a flax variable path maps to the
 port's state_dict key by joining it with dots (see `weights.py`). The JAX
 package's SpmdBatchNorm is `BatchNorm2d` below: plain BatchNorm (eps 1e-5)
-at eval, flax's statistics in training.
+at eval, flax's statistics in training, those of the global batch when a
+process group shards it (parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import dist
 
 
 def get_activation(name: str = "silu") -> Callable:
@@ -108,7 +111,10 @@ def batch_norm_train(x, weight, bias, eps: float):
     (y in x's dtype, the batch mean, its biased variance), the statistics
     reduced in at least f32. They come out of the one batch-norm call that
     normalises (momentum 1 into scratch buffers: the mean and the unbiased
-    variance), the variance scaled back by (n - 1) / n."""
+    variance), the variance scaled back by (n - 1) / n. Under a process
+    group the batch is the global one (`group_batch_norm_train`)."""
+    if dist.initialized():
+        return group_batch_norm_train(x, weight, bias, eps)
     stat = torch.promote_types(x.dtype, torch.float32)
     mean = torch.zeros(x.shape[1], dtype=stat, device=x.device)
     unbiased = torch.zeros_like(mean)
@@ -116,6 +122,100 @@ def batch_norm_train(x, weight, bias, eps: float):
                      1.0, eps)
     n = x.numel() // x.shape[1]
     return y, mean, unbiased * ((n - 1) / n)
+
+
+def group_batch_norm_train(x, weight, bias, eps: float):
+    """batch_norm_train over the batch that the process group's ranks hold
+    together (SpmdBatchNorm's global statistics, blocks.py:40-134): each
+    rank's count, mean and centred sum of squares (in at least f32),
+    merged exactly over the group, then x normalised on the global mean
+    and biased variance. The backward sums over the ranks the two
+    per-channel sums that the statistics' gradients need; the affine's
+    gradients stay this rank's shares, which the train step's gradient
+    all-reduce adds up."""
+    stat = torch.promote_types(x.dtype, torch.float32)
+    return _GroupBatchNorm.apply(x, weight.to(stat), bias.to(stat), eps)
+
+
+def _channels_last_or_contiguous(t):
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    return t.contiguous()
+
+
+class _GroupBatchNorm(torch.autograd.Function):
+    """Training BatchNorm on the group's statistics: (y, mean, var). On
+    CUDA tensors the native per-channel kernels of torch's SyncBatchNorm
+    (batch_norm_stats, batch_norm_gather_stats_with_counts: a Welford
+    merge of the ranks' (count, mean, variance), batch_norm_elemt and the
+    two backward kernels); on the CPU the same math in plain ops: each
+    rank's var_mean, the merge M2 = sum(M2_r + n_r (mean_r - mean)^2) over
+    two all-reduces, and the BatchNorm backward on the all-reduced
+    sum(dy) and sum(dy (x - mean))."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        x = _channels_last_or_contiguous(x)
+        C = x.shape[1]
+        n = x.numel() // C
+        if x.is_cuda:
+            mean_r, invstd_r = torch.batch_norm_stats(x, eps)
+            count = torch.full((1,), n, dtype=mean_r.dtype, device=x.device)
+            parts = dist.all_gather_rows(torch.cat([mean_r, invstd_r, count]))
+            mean_all, invstd_all, count_all = torch.split(parts, C, dim=1)
+            # running statistics in the counts' dtype, left as they are
+            # (momentum 0): the kernel wants its counts in that dtype, f32
+            # for a bf16 x, where it would take x's dtype without them
+            scratch = torch.zeros(2, C, dtype=mean_r.dtype, device=x.device)
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, mean_all, invstd_all, scratch[0], scratch[1], 0.0, eps,
+                count_all.view(-1))
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+            counts = count_all.to(torch.int32)
+            var = invstd.double().pow(-2).sub(eps).to(mean.dtype)
+        else:
+            dims = [0] + list(range(2, x.dim()))
+            shape = [C if d == 1 else 1 for d in range(x.dim())]
+            xs = x.to(weight.dtype)
+            var_r, mean_r = torch.var_mean(xs, dims, correction=0)
+            total = dist.global_sum(torch.cat([
+                mean_r * n, torch.full((1,), n, dtype=xs.dtype)]))
+            counts = total[C:]
+            mean = total[:C] / counts
+            var = dist.global_sum(
+                (var_r + (mean_r - mean) ** 2) * n) / counts
+            invstd = torch.rsqrt(var + eps)
+            y = ((xs - mean.view(shape)) * (invstd * weight).view(shape)
+                 + bias.view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, counts)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        dy = _channels_last_or_contiguous(dy)
+        C = x.shape[1]
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, grad_w, grad_b = \
+                torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                 True, True, True)
+            total = dist.global_sum(torch.cat([sum_dy, sum_dy_xmu]))
+            dx = torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, weight.to(mean.dtype), total[:C],
+                total[C:], counts)
+            return dx, grad_w, grad_b, None
+        dims = [0] + list(range(2, x.dim()))
+        shape = [C if d == 1 else 1 for d in range(x.dim())]
+        xmu = x.to(weight.dtype) - mean.view(shape)
+        dys = dy.to(weight.dtype)
+        sum_dy, sum_dy_xmu = dys.sum(dims), (dys * xmu).sum(dims)
+        total = dist.global_sum(torch.cat([sum_dy, sum_dy_xmu]))
+        N = counts
+        dx = (dys - (total[:C] / N).view(shape)
+              - xmu * (invstd ** 2 * total[C:] / N).view(shape)) \
+            * (weight * invstd).view(shape)
+        return dx.to(x.dtype), sum_dy_xmu * invstd, sum_dy, None
 
 
 @torch.no_grad()
@@ -145,10 +245,30 @@ class Dropout(nn.Module):
                                "(the train step sets it)")
         keep = 1.0 - self.rate
         # the uniforms in x's memory layout (channels_last on the card),
-        # so the select runs as one contiguous pass
-        u = torch.empty_like(x, dtype=torch.float32)
-        mask = u.uniform_(generator=self.generator) < keep
+        # so the select runs as one contiguous pass; under a process group
+        # every rank draws the global batch's and keeps its rows, so the
+        # masks are the one-process step's rows
+        u = _uniforms_like(x, dist.world())
+        u.uniform_(generator=self.generator)
+        if u.shape[0] != x.shape[0]:
+            lo = dist.rank() * x.shape[0]
+            u = u[lo:lo + x.shape[0]]
+        mask = u < keep
         return torch.where(mask, x / keep, 0.0)
+
+
+def _uniforms_like(x, w: int):
+    """An empty f32 tensor in x's memory layout with w times its rows (the
+    batch axis outermost, as in NCHW and channels_last), so its first
+    x.shape[0] rows take the same draws from a generator as an x-like
+    tensor would."""
+    if w == 1:
+        return torch.empty_like(x, dtype=torch.float32)
+    order = sorted(range(x.dim()), key=lambda d: (-x.stride(d), d))
+    shape = (w * x.shape[0], *x.shape[1:])
+    u = torch.empty([shape[d] for d in order], dtype=torch.float32,
+                    device=x.device)
+    return u.permute([order.index(d) for d in range(x.dim())])
 
 
 class BaseConv(nn.Module):

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
 from .assign import simota_assign
 from .blocks import (BaseConv, batch_norm_train, get_activation,
                      update_running_)
@@ -150,6 +151,10 @@ def compute_losses(level_outs, labels, hw_per_level, strides, num_classes,
         padding.
     Returns a dict of scalar loss tensors (no host sync). SimOTA sees the
     predictions detached, so no gradient flows through the assignment.
+    Under a process group num_fg and num_gts are the global batch's
+    (heads.py:232-257 computes them on the sharded global batch), clamped
+    there, so each rank's losses are its share of the global ones and
+    num_fg_per_gt is the global ratio.
     """
     x_shift, y_shift, stride = level_grids(hw_per_level, strides,
                                            device=labels.device)
@@ -171,8 +176,8 @@ def compute_losses(level_outs, labels, hw_per_level, strides, num_classes,
         stride, radius, num_classes=num_classes)
 
     fg = assignment.fg_mask                                  # (N, A)
-    num_fg = torch.clamp_min(assignment.num_fg.sum(), 1.0)
-    num_gts = torch.clamp_min(assignment.num_gt.sum(), 1.0)
+    num_fg = torch.clamp_min(dist.global_sum(assignment.num_fg.sum()), 1.0)
+    num_gts = torch.clamp_min(dist.global_sum(assignment.num_gt.sum()), 1.0)
 
     n, a = fg.shape
     reg_target = torch.gather(

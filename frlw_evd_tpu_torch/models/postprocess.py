@@ -52,6 +52,18 @@ def nms_mask(boxes_xyxy, scores, valid, iou_threshold: float):
     return keep
 
 
+def nms_mask_rounds(boxes_xyxy, scores, valid, iou_threshold: float):
+    """`nms_mask` without its early exit: exactly K rounds of the same
+    update (the fixpoint is reached within K rounds, box i's flag final
+    after round i + 1, and holds after), so the loop has no data-dependent
+    control flow: the form torch.export traces (tools/export_model.py)."""
+    sup_edge = _suppression_edges(boxes_xyxy, iou_threshold)
+    keep = valid
+    for _ in range(boxes_xyxy.shape[-2]):
+        keep = valid & ~(sup_edge & keep[..., :, None]).any(dim=-2)
+    return keep
+
+
 def nms_mask_sequential(boxes_xyxy, scores, valid, iou_threshold: float):
     """Reference formulation: one decision per candidate in score order
     (postprocess.py:64-78). Same result as `nms_mask`."""
@@ -72,6 +84,9 @@ def postprocess_batch(decoded, *, conf_threshold: float = 0.3,
     (dets (N, K, 6) rows [cx, cy, w, h, cls, score], keep (N, K) bool) with
     K = min(max_detections, A). Candidates are ordered as lax.top_k orders
     them: descending score, ties to the lower anchor index (a stable sort).
+    nms_impl: "fixpoint" (`nms_mask`, rounds until no flag changes),
+    "rounds" (`nms_mask_rounds`, K rounds: the exported form) or
+    "sequential"; the three keep the same boxes.
     """
     boxes = decoded[..., :4]
     obj = decoded[..., 4]
@@ -87,7 +102,8 @@ def postprocess_batch(decoded, *, conf_threshold: float = 0.3,
     top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     top_cls = torch.gather(cls_probs, 1, top_idx[..., None].expand(
         -1, -1, cls_probs.shape[-1]))
-    nms = {"fixpoint": nms_mask, "sequential": nms_mask_sequential}[nms_impl]
+    nms = {"fixpoint": nms_mask, "rounds": nms_mask_rounds,
+           "sequential": nms_mask_sequential}[nms_impl]
     keep = nms(cxcywh_to_xyxy(top_boxes), top_scores, valid, nms_threshold)
 
     cls_max, cls_id = top_cls.max(dim=-1)

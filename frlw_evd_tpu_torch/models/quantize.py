@@ -24,7 +24,10 @@ over between the two packages; tables hold OIHW codes.
 
 `int8_ctx(model, scales, table)` swaps each calibrated site's forward for
 `int8_conv2d` while it is active, and leaves the rest of the model as it
-is; with empty scales it does nothing. On CUDA tensors `int8_conv2d`
+is; with empty scales it does nothing. For torch.export,
+`int8_modules_(model, scales, table)` replaces each calibrated conv by an
+`Int8Conv` module that holds the site's codes and scales as buffers and
+calls the registered operator frlw_evd_torch::int8_conv2d (ops.py). On CUDA tensors `int8_conv2d`
 launches `csrc/int8_conv.cu` (wgmma s8 tensor cores, TMA-fed weights, the
 activation quantized where it arrives, bf16 channels_last activations),
 tiled by `tile_plan`, or raises; on CPU tensors it runs the plain twin
@@ -587,3 +590,39 @@ class int8_ctx:  # noqa: N801 (used as a context manager, like the JAX one)
         for head, _ in self.merged.values():
             head.merged_hook = None
         return False
+
+
+class Int8Conv(nn.Module):
+    """A calibrated site as a module, for torch.export (models/quantize.py
+    of the JAX package lowers its sites into the exported program): the
+    OHWI codes, the dequant scale f32(sw * sx) and the bias as buffers,
+    f32(1 / sx) and the stride as attributes; forward calls the operator
+    frlw_evd_torch::int8_conv2d, so a traced program holds one opaque call
+    a site and the kernel runs when the program does."""
+
+    def __init__(self, site: Int8Site):
+        super().__init__()
+        self.register_buffer("wq", site.wq)
+        self.register_buffer("scale", site.scale)
+        self.register_buffer("bias", site.bias)
+        self.inv = site.inv
+        self.stride = site.stride
+
+    def forward(self, x):
+        return torch.ops.frlw_evd_torch.int8_conv2d(
+            x, self.wq, self.scale, self.inv, self.bias, self.stride)
+
+
+def int8_modules_(model: nn.Module, scales, table=None) -> int:
+    """Replace IN PLACE each site of `model` that `scales` calibrates by an
+    Int8Conv on int8_ctx's sites (the codes from `table`, else from the
+    live weight); returns the number replaced. A merged head's towers are
+    refused (their sites are not conv modules)."""
+    if merged_heads(model) and scales:
+        raise ValueError("int8_modules_: the merged head's tower sites are "
+                         "not conv modules; build the canonical head")
+    ctx = int8_ctx(model, scales, table)
+    for key, (_, site) in ctx.sites.items():
+        parent, _, name = key.replace("/", ".").rpartition(".")
+        setattr(model.get_submodule(parent), name, Int8Conv(site))
+    return len(ctx.sites)

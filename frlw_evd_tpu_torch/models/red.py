@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
 from .blocks import BatchNorm2d, PromotingConv2d
 from .memory import ConvLSTMCell, carries_nchw, carries_nhwc
 
@@ -296,7 +297,9 @@ def multibox_loss(cls_logits, bbox_pred, labels, gt_locations,
                   gamma: float = 2.0):
     """Hard-negative-mined focal classification + smooth-L1 regression
     (red.py:292-317); labels (N, P) int (0 = background). Returns
-    (reg_loss, cls_loss), both over the number of positives."""
+    (reg_loss, cls_loss), both over the number of positives. Under a
+    process group the mined and positive counts are the global batch's,
+    clamped there."""
     with torch.no_grad():
         bg_loss = -torch.log_softmax(cls_logits, dim=2)[:, :, 0]
         mask = hard_negative_mining(bg_loss, labels, NEG_POS_RATIO)
@@ -305,7 +308,7 @@ def multibox_loss(cls_logits, bbox_pred, labels, gt_locations,
     p_t = torch.gather(probs, -1, labels.long()[..., None])[..., 0]
     log_p = torch.log(torch.clamp(p_t, min=1e-12))
     focal = -torch.pow(1.0 - p_t, gamma) * log_p
-    n_mined = torch.clamp(mask.sum(), min=1)
+    n_mined = torch.clamp(dist.global_sum(mask.sum()), min=1)
     cls_loss = (focal * mask).sum() / n_mined
 
     pos = labels > 0
@@ -313,7 +316,7 @@ def multibox_loss(cls_logits, bbox_pred, labels, gt_locations,
     abs_diff = torch.abs(diff)
     smooth_l1 = torch.where(abs_diff < 1.0, 0.5 * diff ** 2,
                             abs_diff - 0.5).sum(-1)
-    num_pos = torch.clamp(pos.sum(), min=1)
+    num_pos = torch.clamp(dist.global_sum(pos.sum()), min=1)
     reg_loss = (smooth_l1 * pos).sum() / num_pos
     cls_loss = cls_loss * n_mined / num_pos
     return reg_loss, cls_loss

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
 from .blocks import BaseConv
 from .stems import BinsFusionModule
 
@@ -321,7 +322,9 @@ def yolov3_loss(preds, gt_tensor: torch.Tensor, num_classes: int,
     """The criterion (yolov3.py:321-355): objectness MSE on the sigmoid
     against 0.5 * (GIoU + 1) at positives (detached; pos 5x, neg 1x), CE
     at positives, (1 - GIoU) * scale at positives, each summed over the
-    batch / N. gt_tensor from `gt_creator`."""
+    batch / N. gt_tensor from `gt_creator`. Under a process group N is
+    the global batch (world() equal shards), so each rank's losses are its
+    share of the global ones."""
     obj_pred, cls_pred, box_pred = decode_boxes(preds, num_classes, img_size)
     target_pos = gt_tensor[..., 0]
     target_cls = gt_tensor[..., 1].long()
@@ -331,7 +334,7 @@ def yolov3_loss(preds, gt_tensor: torch.Tensor, num_classes: int,
     giou = giou_xyxy(box_pred, target_box)
     target_obj = (0.5 * (giou + 1.0)).detach() * target_pos
 
-    B = obj_pred.shape[0]
+    B = obj_pred.shape[0] * dist.world()
     mse = torch.square(torch.sigmoid(obj_pred[..., 0]) - target_obj)
     loss_obj = (mse * (target_pos * 5.0 + (1 - target_pos))).sum() / B
 

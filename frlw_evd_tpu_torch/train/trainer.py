@@ -51,6 +51,8 @@ from ..models.detector import (build_detector, build_memory_detector,
                                detector_loss, eval_decode, init_parameters_)
 from ..models.postprocess import finalize_detections, postprocess_batch
 from ..models import red
+from ..parallel import dist
+from ..parallel.multihost import broadcast_object, gather_objects
 from ..models.yolov3 import (YOLOv3Detector, gt_creator, yolov3_eval_decode,
                              yolov3_loss)
 from ..pipeline import channels_last_, resolve_device
@@ -257,13 +259,38 @@ def make_train_step(strides, num_classes: int, radius: float,
     return _train_step(losses, half_precision, device)
 
 
+# losses that are ratios of global counts, the same on every rank (the
+# others are each rank's share of a global loss)
+_GLOBAL_LOSSES = ("num_fg_per_gt",)
+
+
+def _summed_over_ranks(losses: dict) -> dict:
+    """The detached losses of the global batch: each share summed over
+    the process group in one all-reduce (the losses themselves with no
+    group)."""
+    if not dist.initialized():
+        return losses
+    keys = [k for k in losses if k not in _GLOBAL_LOSSES]
+    summed = dist.global_sum(torch.stack([losses[k] for k in keys]))
+    return {k: summed[keys.index(k)] if k in keys else v
+            for k, v in losses.items()}
+
+
 def _train_step(losses_fn, half_precision: bool, device):
     """train_step(state, imgs, targets, generator) -> losses around
     losses_fn(model, imgs, targets, generator) -> the dict of losses: the
     model in training mode with the stem's dropout drawing from
     `generator`, imgs and targets moved to the device (imgs in bf16 under
     half_precision), total_loss backpropagated to the f32 masters, one
-    optimiser update; the detached losses out."""
+    optimiser update; the detached losses out.
+
+    Under a process group (parallel/dist.py) imgs and targets are this
+    rank's rows of the global batch, the losses its shares of the global
+    batch's (normalised by global counts), and the masters' gradients are
+    summed over the ranks in one bucket before the update, so every rank
+    makes the one-process step's update of the global batch; the returned
+    losses are the global ones. The step runs through functional_call on
+    bf16 copies, so this is done here and not by DDP's module hooks."""
     dev = resolve_device(device)
 
     def train_step(state: TrainState, imgs, targets, generator):
@@ -275,8 +302,9 @@ def _train_step(losses_fn, half_precision: bool, device):
         state.optimizer.zero_grad(set_to_none=True)
         losses = losses_fn(model, imgs, targets.to(dev), generator)
         losses["total_loss"].backward()
+        dist.all_reduce_grads(model.parameters())
         state.apply_gradients()
-        return {k: v.detach() for k, v in losses.items()}
+        return _summed_over_ranks({k: v.detach() for k, v in losses.items()})
 
     return train_step
 
@@ -511,7 +539,19 @@ class Trainer:
     and, for yolov3, the host seconds of gt_creator within that wait;
     `_train_loop` adds the epoch's validation under "val" (the stats, the
     detection loop's and the COCO evaluation's seconds, also left in
-    `last_eval` by each `eval_epoch`)."""
+    `last_eval` by each `eval_epoch`).
+
+    Under a process group (`python -m torch.distributed.run
+    --nproc_per_node=N -m frlw_evd_tpu_torch.cli.train ...`, parallel/
+    dist.py) cfg.batch_size stays the global batch: every rank shuffles
+    with the same seed and loads its contiguous rows of each global
+    batch, the steps reduce over the group (BatchNorm statistics, loss
+    normalisers, one gradient all-reduce), so every rank keeps the same
+    parameters, optimiser and EMA; each rank decodes its rows of each
+    validation batch and rank 0 evaluates them all (gather_objects) and
+    alone writes checkpoints, TensorBoard and the epoch lines. Each rank's
+    dataset draws its augmentation from seed cfg.seed + rank, so the
+    ranks' draws are not alike."""
 
     def __init__(self, cfg: ExpConfig, *, device="cuda"):
         self.cfg = cfg
@@ -542,21 +582,23 @@ class Trainer:
         # labels are rescaled sensor → input inside the dataset: the
         # override must reach it, or every box is mis-scaled silently
         sensor = cfg.sensor_hw_override
+        seed = cfg.seed + dist.rank()
         if cfg.uses_taf_dataset:
             return PropheseeTafDataset(
                 cfg.bbox_path, cfg.data_path, cfg.dataset, cfg.img_size,
                 cfg.img_size, cfg.infer_time, cfg.event_volume_bins, mode,
-                augment, cfg.clipping, seed=cfg.seed, sensor_hw=sensor)
+                augment, cfg.clipping, seed=seed, sensor_hw=sensor)
         return PropheseeDataset(
             cfg.bbox_path, cfg.data_path, cfg.dataset, cfg.img_size,
             cfg.img_size, cfg.event_volume_bins, cfg.infer_time, mode,
-            augment, cfg.clipping, seed=cfg.seed, sensor_hw=sensor)
+            augment, cfg.clipping, seed=seed, sensor_hw=sensor)
 
     def _loader(self, dataset, train: bool) -> Loader:
         return Loader(dataset, self.cfg.batch_size, self.cfg.num_workers,
                       shuffle=train, drop_last=train,
                       seed=self.cfg.seed if train else 0,
-                      pin_memory=self.device.type == "cuda")
+                      pin_memory=self.device.type == "cuda",
+                      shard=(dist.rank(), dist.world()))
 
     def create_datasets(self):
         cfg = self.cfg
@@ -591,7 +633,12 @@ class Trainer:
         self.ema_params = (ema_init(dict(self.model.named_parameters()))
                            if cfg.use_ema else None)
         n_params = sum(p.numel() for p in self.model.parameters())
-        print(f"{n_params:,} total parameters.")
+        self._print(f"{n_params:,} total parameters.")
+
+    @staticmethod
+    def _print(msg: str) -> None:
+        if dist.rank() == 0:
+            print(msg)
 
     @contextlib.contextmanager
     def _eval_weights(self):
@@ -682,9 +729,9 @@ class Trainer:
                if self.cfg.family == "yolov3" else {})})
         mean = {k: float(np.mean(v)) for k, v in table.items()}
         lr = float(self.schedule(self.state.step - 1))
-        print(f"Epoch {self.epoch}: " +
-              ", ".join(f"{k}={v:.4f}" for k, v in mean.items()) +
-              f", lr={lr:.6f}")
+        self._print(f"Epoch {self.epoch}: " +
+                    ", ".join(f"{k}={v:.4f}" for k, v in mean.items()) +
+                    f", lr={lr:.6f}")
         return mean
 
     def eval_epoch(self, evaluator: Evaluator):
@@ -692,42 +739,60 @@ class Trainer:
         `evaluator`; returns its six COCO stats. Each batch's infer_time is
         read after a synchronize on the card. The last batch may be
         smaller: cudnn.benchmark is off in the port, so no autotuning
-        reruns for it."""
-        cfg = self.cfg
-        seq_state = None
-        seq_stream = None
-        if cfg.seq_nms:
-            from ..models.seq_nms import SeqNMSState
-
-            seq_state = SeqNMSState()
+        reruns for it. Under a process group each rank decodes its rows of
+        each batch, rank 0 gathers them in rank order (the one-process
+        order), links and evaluates them, and every rank returns rank 0's
+        stats."""
         t_loop = time.perf_counter()
+        batches = []
         with self._eval_weights():
-            for imgs, labels, names, tss in self.val_loader:
+            for item in self.val_loader:
+                if item is None:        # this rank holds no row of it
+                    batches.append(None)
+                    continue
+                imgs, labels, names, tss = item
                 start = time.time()
                 dets, keep = self.eval_step(self.state, imgs)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 infer_time = time.time() - start
-                outputs = finalize_detections(dets, keep)
-                if seq_state is not None:
-                    # link detections across consecutive windows of each
-                    # stream (yolo_head.py:283-300; val samples arrive in
-                    # stream order)
-                    linked = []
-                    for out, name in zip(outputs, names):
-                        if name != seq_stream:
-                            seq_state.clean()
-                            seq_stream = name
-                        linked.append(seq_state.link(out))
-                    outputs = linked
-                evaluator.add_result(outputs, list(tss), labels.numpy(),
-                                     names, infer_time, 0.0)
+                batches.append((finalize_detections(dets, keep), list(tss),
+                                labels.numpy(), list(names), infer_time))
+        if dist.world() > 1:
+            batches = _merged_rank_batches(gather_objects(batches))
+        if dist.rank() == 0:
+            self._add_results(evaluator, batches)
         t_coco = time.perf_counter()
-        stats = evaluator.evaluate()
+        stats = broadcast_object(evaluator.evaluate() if dist.rank() == 0
+                                 else None)
         done = time.perf_counter()
         self.last_eval = {"stats": stats, "loop_s": t_coco - t_loop,
                           "coco_s": done - t_coco}
         return stats
+
+    def _add_results(self, evaluator: Evaluator, batches) -> None:
+        """Each batch's detections (seq-NMS-linked when cfg.seq_nms) into
+        `evaluator`."""
+        seq_state = None
+        seq_stream = None
+        if self.cfg.seq_nms:
+            from ..models.seq_nms import SeqNMSState
+
+            seq_state = SeqNMSState()
+        for outputs, tss, labels, names, infer_time in batches:
+            if seq_state is not None:
+                # link detections across consecutive windows of each
+                # stream (yolo_head.py:283-300; val samples arrive in
+                # stream order)
+                linked = []
+                for out, name in zip(outputs, names):
+                    if name != seq_stream:
+                        seq_state.clean()
+                        seq_stream = name
+                    linked.append(seq_state.link(out))
+                outputs = linked
+            evaluator.add_result(outputs, tss, labels, names, infer_time,
+                                 0.0)
 
     def make_evaluator(self, recorder=None) -> Evaluator:
         cfg = self.cfg
@@ -738,7 +803,10 @@ class Trainer:
 
     def _make_tb_writer(self):
         """TensorBoard scalars per epoch (Training/Loss, Validation/Map —
-        reference core/exp.py:215,313,328); None if tensorboard is absent."""
+        reference core/exp.py:215,313,328) on rank 0; None elsewhere or if
+        tensorboard is absent."""
+        if dist.rank() != 0:
+            return None
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -769,11 +837,12 @@ class Trainer:
             if self.tb_writer is not None and mean:
                 self.tb_writer.add_scalar("Training/Loss",
                                           mean["total_loss"], self.epoch)
-            save_checkpoint(os.path.join(self.ckpt_dir, "last_epoch"),
-                            self.state, self.epoch, self.max_score,
-                            self.ema_params)
-            save_part_checkpoints(os.path.join(self.ckpt_dir, "last_epoch"),
-                                  self.state)
+            if dist.rank() == 0:
+                save_checkpoint(os.path.join(self.ckpt_dir, "last_epoch"),
+                                self.state, self.epoch, self.max_score,
+                                self.ema_params)
+                save_part_checkpoints(
+                    os.path.join(self.ckpt_dir, "last_epoch"), self.state)
             # reduce_evaluate: validate only every ~10% of the run and in
             # the final 40% (reference core/exp.py:249)
             do_eval = (not cfg.reduce_evaluate) or (
@@ -789,11 +858,15 @@ class Trainer:
                                               self.epoch)
                 if result[0] > self.max_score:
                     self.max_score = result[0]
-                    with self._eval_weights():
-                        save_checkpoint(
-                            os.path.join(self.ckpt_dir, "best_epoch"),
-                            self.state, self.epoch, self.max_score)
-                print(f"Epoch {self.epoch}: best score {self.max_score}")
+                    if dist.rank() == 0:
+                        with self._eval_weights():
+                            save_checkpoint(
+                                os.path.join(self.ckpt_dir, "best_epoch"),
+                                self.state, self.epoch, self.max_score)
+                self._print(f"Epoch {self.epoch}: best score "
+                            f"{self.max_score}")
+            if dist.initialized():      # the saves are on disk for all
+                torch.distributed.barrier()
             self.epoch += 1
 
     def test(self):
@@ -811,3 +884,19 @@ class Trainer:
         self.ema_params = None
         recorder = Recorder(self.exp_dir) if cfg.record else None
         return self.eval_epoch(self.make_evaluator(recorder))
+
+
+def _merged_rank_batches(per_rank):
+    """The ranks' validation batches (gather_objects of each rank's list,
+    None where a rank held no row of a batch) as the one-process batches:
+    each batch's rows in rank order, its infer_time the slowest rank's."""
+    merged = []
+    for parts in zip(*per_rank):
+        parts = [p for p in parts if p is not None]
+        merged.append((
+            [o for p in parts for o in p[0]],
+            [t for p in parts for t in p[1]],
+            np.concatenate([p[2] for p in parts]),
+            [n for p in parts for n in p[3]],
+            max(p[4] for p in parts)))
+    return merged

@@ -241,7 +241,7 @@ def _spread_head(params, rng):
     """BatchNorm affines U(1, 1.25) / N(0, 0.1), the obj biases 2.0 and the
     box-size biases log 8 (test_torch_port_trainer._serving_params), so
     that the eval step's boxes pass its confidence threshold."""
-    from test_torch_port_trainer import _serving_params
+    from test_torch_port_trainer_common import _serving_params
     return _serving_params(params, rng)
 
 
@@ -268,7 +268,7 @@ def steps_against_jax(pt, module, variables, j_train, j_eval, imgs,
     (the mean of squares less the squared mean) alone moves a running
     variance by 1.1e-5 from torch's; f64 takes that noise out, so the
     gates test the algorithm."""
-    from test_torch_port_trainer import DET_TOL, _match
+    from test_torch_port_trainer_common import DET_TOL, _match
     imgs = imgs.astype(np.float64)
     tx = optax.sgd(0.0)    # unused: the compared numbers precede the update
     with jax.enable_x64(True):

@@ -31,7 +31,7 @@ from frlw_evd_tpu_torch.tools import generate_taf, stream_infer
 from frlw_evd_tpu_torch.train import adam, create_train_state, save_checkpoint
 from frlw_evd_tpu_torch.weights import load_flax_variables
 from test_generators import run_tool
-from test_torch_port_trainer import NARROW, _serving_params
+from test_torch_port_trainer_common import NARROW, _serving_params
 
 BLOB_GATE, STATE_TOL, DET_TOL = 1e-3, 2e-3, 1e-4
 
