@@ -247,15 +247,38 @@ Phases (any failure exits non-zero; no phase catches and continues):
      --int8, each with --check; each .pt2 loaded here and held to the live step built the
      same way (keep equal, dets within 1e-5), int8_conv2d launched 61
      times a call of the int8 program; windows/s of the loaded program
-     and the live step in turns.
+     and the live step in turns;
+ 44. the utilities and the motion-level chain on phase 28's tree (240x304,
+     its val split linked as the test split): tools.generate_opticalflow
+     on the card (ms a flow pair of the call and under utils.profiling.Timer
+     spans, host clock), one pair's Farneback under one
+     utils.profiling.trace, written and non-empty, its device time the
+     trace's kernels' busy time, the same surface pairs through the CPU path (TF32
+     off) within FLOW_GATE px mean endpoint error; the statistics tools,
+     cli.test --record True of phase 28's best_epoch, mAP by motion
+     quintile (5 values, one at least finite); tools.visualization of one
+     TAF blob with boxes and its flow, each PNG read back equal to the
+     array drawn; tools.sampling_dataset's event and annotation counts;
+     no kernel launched;
+ 45. tools.dress_rehearsal through its command line on phase 28's tree,
+     raw (the TAF queue on the card) and -blob_dir on phase 28's blobs,
+     with phase 28's best_epoch and with phase 22's AED (whose spread
+     weights keep boxes): the same windows, detections and mAP in both
+     modes; ms a window of the encode and of detect; no kernel launched;
+ 46. tools.learnability -streams 12 -epochs 60 -int8_eval (BASELINE.md's
+     recipe): f32 AP50 at least LEARN_AP50, map_int8 within
+     LEARN_INT8_GAP of map_f32_final, int8_conv2d launched, each launch
+     of the int8 evaluation equal bit for bit to int8_conv2d_plain on its
+     bf16-rounded f32 input, wall seconds.
 Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
 per cell order, each entry's launches and times from one path (every path
 that launches it under launches_by_path), and the nvidia-smi line before
-its last line, {"ok": true, "device": {...}}. Every ms it prints is the
-device's time (time_ms: CUDA events around calls queued behind a sleep);
-windows/s and ms/step are on the host clock.
+its last line, {"ok": true, "device": {...}}. Every kernel's ms it prints
+is the device's time (time_ms: CUDA events around calls queued behind a
+sleep); windows/s, ms/step and the tools' ms a pair or a window (phases
+44-46) are on the host clock, and say so.
 """
 
 from __future__ import annotations
@@ -4110,6 +4133,339 @@ def run_export(counters, dev, card):
     return by_path
 
 
+FLOW_GATE = 1e-3                  # card vs CPU mean endpoint error, px
+LEARN_ARGS = ["-streams", "12", "-epochs", "60", "-int8_eval"]
+LEARN_AP50, LEARN_INT8_GAP = 0.9, 0.05
+
+
+def _merged_split(tree, out: Path, split: str = "test") -> str:
+    """A directory holding `split`'s .dat files and _bbox.npy labels side
+    by side (the statistics tools' and sampling_dataset's layout), as
+    symbolic links into phase 28's tree; returns its root."""
+    dst = out / split
+    dst.mkdir(parents=True, exist_ok=True)
+    for root in (tree["events"], tree["labels"]):
+        for f in sorted((Path(root) / split).iterdir()):
+            if not (dst / f.name).exists():
+                (dst / f.name).symlink_to(f.resolve())
+    return str(out)
+
+
+def run_motion_level(data, counters, dev, card):
+    """Phase 44: the utilities and the motion-level chain on phase 28's
+    GEN1 tree (240x304; its val split linked as the test split):
+    tools.generate_opticalflow on the card over the test split (ms a flow
+    pair of the whole call, host clock); the first stream's pairs again
+    under Timer spans, each fenced on its flow (ms a pair, host clock); one
+    pair's Farneback by time_ms (its enqueue outruns the card: a reading
+    of the host's launch rate) and under one utils.profiling.trace,
+    written and non-empty, whose kernels' busy time (device_busy_us) is
+    the device time of a pair; the same surface pairs through the CPU path
+    (TF32 off), mean endpoint error within FLOW_GATE px of the card's;
+    then motion_level_statistics_gt, cli.test --record True of phase 28's
+    best_epoch in a subprocess, motion_level_statistics_dt and
+    motion_level_evaluation (5 values, one at least finite);
+    tools.visualization of one TAF blob with its GT, the recorded
+    detections and its flow, each PNG read back by draw.read_png equal to
+    the array drawn; tools.sampling_dataset over the test split (its event
+    and annotation counts). No kernel may launch. Returns the counts."""
+    from frlw_evd_tpu_torch.events import PSEELoader
+    from frlw_evd_tpu_torch.tools import (generate_opticalflow, farneback,
+                                          motion_level,
+                                          motion_level_evaluation,
+                                          motion_level_statistics_dt,
+                                          motion_level_statistics_gt,
+                                          sampling_dataset, visualization)
+    from frlw_evd_tpu_torch.tools.generate_common import events_to_xytp
+    from frlw_evd_tpu_torch.utils import Timer, trace
+    from frlw_evd_tpu_torch.utils.draw import read_png
+    from frlw_evd_tpu_torch.utils.profiling import device_busy_us
+
+    tree = data["tree"]
+    work = WORK / "motion"
+    shutil.rmtree(work, ignore_errors=True)
+    events_test = Path(tree["events"]) / "test"
+    if not events_test.exists():
+        events_test.symlink_to("val")
+    raw = _merged_split(tree, work / "raw")
+    flow_dir = str(work / "flow")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    n = generate_opticalflow.generate_opticalflow(
+        tree["events"], tree["labels"], "gen1", flow_dir, dev)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / max(n, 1) * 1e3
+    if n != VAL_STREAMS * len(GEN1_TREE["ann_times"]):
+        raise SystemExit(f"generate_opticalflow wrote {n} flows")
+
+    # the first stream's surface pairs again: card (time_ms, trace) and CPU
+    name = sorted(f.name[:-len("_td.dat")] for f in events_test.iterdir()
+                  if f.name.endswith("_td.dat"))[0]
+    loader = PSEELoader(str(events_test / f"{name}_td.dat"))
+    pairs = []
+    for t in GEN1_TREE["ann_times"]:
+        loader.seek_time(t - generate_opticalflow.WINDOW)
+        pairs.append((t, events_to_xytp(loader.load_delta_t(
+            generate_opticalflow.WINDOW))))
+    timer = Timer()
+    for _, xytp in pairs:
+        with timer.span("flow"):
+            v1, v2 = (v.to(torch.uint8) for v in
+                      motion_level.generate_timesurface(xytp, GEN1_SENSOR,
+                                                        dev))
+            timer.fence(farneback.farneback_flow(v1, v2, dev))
+    launch_ms = time_ms(lambda: farneback.farneback_flow(v1, v2, dev))
+    with trace(str(work / "trace")) as prof:
+        farneback.farneback_flow(v1, v2, dev)
+        torch.cuda.synchronize()
+    busy_ms = device_busy_us(prof.events()) / 1e3
+    trace_file = work / "trace" / "trace.json"
+    if not trace_file.exists() or trace_file.stat().st_size == 0:
+        raise SystemExit("trace wrote no trace.json")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        epes, t0 = [], time.perf_counter()
+        for t, xytp in pairs:
+            c1, c2 = motion_level.generate_timesurface(xytp, GEN1_SENSOR,
+                                                       "cpu")
+            cpu = motion_level.compute_flow(c1.to(torch.uint8),
+                                            c2.to(torch.uint8), "cpu")
+            card_flow = np.load(Path(flow_dir) / f"{name}_{t}.npy")
+            epes.append(np.sqrt(((cpu - card_flow) ** 2).sum(-1)).ravel())
+        cpu_ms = (time.perf_counter() - t0) / len(pairs) * 1e3
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    epe = np.concatenate(epes)
+    log(f"generate_opticalflow on {card}: {n} flow pairs at 240x304, "
+        f"{call_ms:.3f} ms a pair (the whole call with its reads and "
+        f"writes, host clock); {len(pairs)} pairs again "
+        f"{timer.avg_ms('flow'):.3f} ms a pair (surfaces and Farneback, "
+        f"Timer spans fenced on the flow, host clock); Farneback alone "
+        f"{busy_ms:.3f} ms of device time a pair (the trace's kernels, "
+        f"device_busy_us), {launch_ms:.3f} ms a pair by time_ms (host "
+        f"launch bound); the CPU path "
+        f"{cpu_ms:.1f} ms a pair (host clock); card against CPU on "
+        f"{len(pairs)} pairs: endpoint error mean {epe.mean():.3e} px, max "
+        f"{epe.max():.3e} (gate {FLOW_GATE} on the mean); trace "
+        f"{trace_file.stat().st_size} bytes")
+    if not epe.mean() <= FLOW_GATE:
+        raise SystemExit(f"flow card against CPU: mean {epe.mean()}")
+
+    stats_dir = str(work / "stats")
+    motion_level_statistics_gt.main(["-raw_dir", raw, "-dataset", "gen1",
+                                     "-flow_dir", flow_dir, "-out_dir",
+                                     stats_dir])
+    exp, log_path = "gen1_taf_bfm", str(WORK / "log")
+    cmd = [sys.executable, "-m", "frlw_evd_tpu_torch.cli.test",
+           "--exp_type", "taf_bfm", "--dataset", "gen1",
+           "--batch_size", str(TREE_BATCH), "--event_volume_bins", str(K),
+           "--data_path", data["taf_dir"], "--bbox_path", tree["labels"],
+           "--log_path", log_path, "--resume_exp", exp, "--record", "True"]
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    summary = Path(log_path) / exp / "summarise.npz"
+    if res.returncode != 0 or not summary.exists():
+        raise SystemExit(f"cli.test --record failed:\n{res.stdout}\n"
+                         f"{res.stderr}")
+    motion_level_statistics_dt.main(["-raw_dir", raw, "-dataset", "gen1",
+                                     "-exp_name", exp, "-log_path",
+                                     log_path, "-flow_dir", flow_dir])
+    quintiles = motion_level_evaluation.main(
+        ["-dataset", "gen1", "-exp_name", exp, "-log_path", log_path,
+         "-stats_dir", stats_dir])
+    gt = np.load(Path(stats_dir) / "gt_gen1.npz")
+    dt = np.load(Path(log_path) / exp / "summarise_stats.npz")
+    log(f"motion-level chain: {len(gt['densitys'])} GT boxes, "
+        f"{len(dt['densitys'])} detections with densities; mAP by motion "
+        f"quintile {[round(v, 4) for v in quintiles]}")
+    if len(quintiles) != 5 or not any(np.isfinite(quintiles)):
+        raise SystemExit(f"motion_level_evaluation: {quintiles}")
+
+    t_ann = GEN1_TREE["ann_times"][len(GEN1_TREE["ann_times"]) // 2]
+    viz = str(work / "viz")
+    drawn = visualization.main(
+        ["-item", name, "-end", str(t_ann), "-data_path", data["taf_dir"],
+         "-bbox_path", tree["labels"], "-dataset", "gen1", "-event_type",
+         "taf", "-result_path", viz, "-exp_name", exp, "-log_path",
+         log_path + "/", "-flow_dir", flow_dir])
+    for key, f in (("image", f"{name}_{t_ann}_taf.png"),
+                   ("flow", f"{name}_{t_ann}_flow.png")):
+        back = read_png(str(Path(viz) / f))
+        if back.shape != (*GEN1_SENSOR, 3) or not np.array_equal(
+                back, drawn[key]):
+            raise SystemExit(f"visualization {f}: read back differs")
+    counts = sampling_dataset.main(
+        ["-raw_dir", raw, "-target_dir", str(work / "sampled"),
+         "-sampling_period", "200000", "-height", str(GEN1_SENSOR[0]),
+         "-width", str(GEN1_SENSOR[1])])
+    log(f"visualization: {name}_{t_ann} TAF with boxes and its flow, both "
+        f"read back equal; sampling_dataset (200 ms): {counts['events']} "
+        f"events, {counts['annotations']} annotations in "
+        f"{counts['streams']} streams")
+    if not (counts["streams"] == VAL_STREAMS and counts["events"] > 0):
+        raise SystemExit(f"sampling_dataset: {counts}")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise SystemExit(f"the motion-level chain launched {launches}")
+    return {"motion_level": launches}
+
+
+def run_dress_rehearsal(data, counters, dev, card):
+    """Phase 45: tools.dress_rehearsal through its command line (main with
+    argv) on phase 28's tree at 240x304 → 256x320 on the card, raw mode
+    (the TAF queue of encode/taf.py on the card) and -blob_dir mode on
+    phase 28's TAF blobs (tools.generate_taf's, on the card), with two
+    checkpoints: phase 28's best_epoch (two epochs: it may keep no box at
+    conf 0.3) and phase 22's AED (int8_gen1_model, saved as a port
+    checkpoint: its spread weights keep boxes). For each, the same
+    windows, streams, detections and mAP in both modes (the blobs are the
+    same bytes); ms a window of the encode and of detect (host clock,
+    each ending in a host read); no kernel launched. Returns the counts
+    of best_epoch's raw run."""
+    from frlw_evd_tpu_torch import pipeline
+    from frlw_evd_tpu_torch.models import build_detector
+    from frlw_evd_tpu_torch.tools import dress_rehearsal
+
+    tree = data["tree"]
+    spread = WORK / "dress_rehearsal_aed"
+    torch.save({"model": int8_gen1_model(build_detector, pipeline)
+                .state_dict()}, spread)
+    launches = {}
+    for label, ckpt in (("best_epoch", data["checkpoint"]),
+                        ("phase 22's AED", str(spread))):
+        common = ["-label_dir", tree["labels"], "-dataset", "gen1",
+                  "-split", "test", "-checkpoint", ckpt, "-device", "cuda"]
+        results = {}
+        for mode, flags in (("raw", ["-raw_dir", tree["events"]]),
+                            ("blob", ["-blob_dir", data["taf_dir"]])):
+            for fn in counters.values():
+                fn.launches = 0
+            results[mode] = dress_rehearsal.main(flags + common)
+            torch.cuda.synchronize()
+            launches[label, mode] = {k: fn.launches
+                                     for k, fn in counters.items()}
+        raw, blob = results["raw"], results["blob"]
+        same = all(np.array_equal(a, b) for a, b in zip(raw["dets"],
+                                                       blob["dets"]))
+        kept = sum(int((d[:, 5] > 0).sum()) for d in raw["dets"])
+        log(f"dress_rehearsal with {label} on {card}: raw {raw['windows']} "
+            f"windows of {raw['streams']} streams ({kept} detections, each "
+            f"window's equal to -blob_dir's: {same}), mAP "
+            f"{raw['mAP']:.6f}, encode {raw['encode_ms']:.2f} ms a window, "
+            f"detect {raw['detect_ms']:.2f}; -blob_dir {blob['windows']} "
+            f"windows, mAP {blob['mAP']:.6f}, blob reads "
+            f"{blob['encode_ms']:.2f} ms a window, detect "
+            f"{blob['detect_ms']:.2f} (host clock)")
+        if ((raw["windows"], raw["streams"])
+                != (blob["windows"], blob["streams"])
+                or raw["windows"] != VAL_STREAMS * len(GEN1_TREE["ann_times"])
+                or raw["mAP"] != blob["mAP"] or not same
+                or (ckpt == str(spread) and not kept)):
+            raise SystemExit(f"dress_rehearsal with {label}: raw {raw} "
+                             f"against blob {blob}")
+    if any(v for m in launches.values() for v in m.values()):
+        raise SystemExit(f"dress_rehearsal launched {launches}")
+    return {"dress_rehearsal": launches["best_epoch", "raw"]}
+
+
+def checked_int8_eval_step(quantize, make_eval_step, checked):
+    """make_eval_step, whose steps with `quant` hold each calibrated site's
+    launch, as the step runs it, to int8_conv2d_plain on the same codes
+    and the bf16-rounded input (int8_ctx's act_dtype, which the card's
+    step passes for an f32 network), cast back to f32: bit for bit, at
+    every batch's shapes. Adds to `checked` one count a site checked, the
+    site's key."""
+    def make(strides, **kw):
+        step = make_eval_step(strides, **kw)
+        if kw.get("quant") is None:
+            return step
+        scales, table = kw["quant"]
+
+        def hook(key, site):
+            def compare(_module, args, out):
+                x = args[0]
+                want = quantize.int8_conv2d_plain(
+                    x.to(torch.bfloat16), site.wq, site.scale, site.inv,
+                    site.bias, stride=site.stride).float()
+                if not (x.dtype == out.dtype == torch.float32
+                        and torch.equal(out, want)):
+                    raise SystemExit(f"int8 site {key} on "
+                                     f"{tuple(x.shape)} {x.dtype}: the "
+                                     f"kernel's {out.dtype} output and "
+                                     f"int8_conv2d_plain differ")
+                checked[key] += 1
+            return compare
+
+        def eval_step(state, imgs):
+            # the same codes and scales as the step's own sites: read
+            # here, never launched
+            sites = quantize.int8_ctx(state.model, scales, table).sites
+            handles = [conv.register_forward_hook(hook(key, site))
+                       for key, (conv, site) in sites.items()]
+            try:
+                return step(state, imgs)
+            finally:
+                for h in handles:
+                    h.remove()
+
+        eval_step.decoded = step.decoded
+        return eval_step
+    return make
+
+
+def run_learnability(counters, card):
+    """Phase 46: tools.learnability with BASELINE.md's recipe (LEARN_ARGS:
+    12 streams, 60 epochs, -int8_eval) on the card: the f32 AP50 at least
+    LEARN_AP50, map_int8 within LEARN_INT8_GAP of map_f32_final,
+    int8_conv2d launched (every calibrated site a batch of the int8
+    evaluation), each launch held bit for bit to its twin on the
+    bf16-rounded f32 input as the step runs it (checked_int8_eval_step:
+    the basic AED at 64x96, every val batch, the last one partial), every
+    calibrated site checked, and the wall seconds. Returns the counts."""
+    from frlw_evd_tpu_torch.models import quantize
+    from frlw_evd_tpu_torch.tools import learnability
+
+    out = WORK / "learnability"
+    shutil.rmtree(out, ignore_errors=True)
+    checked = Counter()
+    own = learnability.make_eval_step
+    learnability.make_eval_step = checked_int8_eval_step(quantize, own,
+                                                         checked)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = learnability.main(LEARN_ARGS + ["-out", str(out), "-device",
+                                              "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        learnability.make_eval_step = own
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"learnability {' '.join(LEARN_ARGS)} on {card}: {wall:.1f} s; "
+        f"AP50 {res['value']:.4f} (best epoch {res['best_epoch']}), mAP "
+        f"{res['map']:.4f}; final f32 mAP {res['map_f32_final']:.4f} AP50 "
+        f"{res['ap50_f32_final']:.4f}, int8 mAP {res['map_int8']:.4f} AP50 "
+        f"{res['ap50_int8']:.4f}; int8_conv2d {launches['int8_conv2d']} "
+        f"launches, {sum(checked.values())} of them at {len(checked)} "
+        f"sites equal to int8_conv2d_plain on the bf16-rounded input, bit "
+        f"for bit")
+    if (res["value"] < LEARN_AP50 or abs(res["map_int8"]
+                                        - res["map_f32_final"])
+            > LEARN_INT8_GAP or not launches["int8_conv2d"]
+            or sum(checked.values()) != launches["int8_conv2d"]
+            or any(v for k, v in launches.items() if k != "int8_conv2d")):
+        raise SystemExit(f"learnability: {res}, launches {launches}, "
+                         f"checked {dict(checked)}")
+    return {"learnability_int8": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4299,6 +4655,13 @@ def main() -> int:
           dev, card, synthetic_train["gen1_train"])
     torch.cuda.empty_cache()
     by_path.update(phase(43, "export", run_export, counters, dev, card))
+    torch.cuda.empty_cache()
+    by_path.update(phase(44, "utilities and the motion-level chain",
+                         run_motion_level, data, counters, dev, card))
+    by_path.update(phase(45, "dress_rehearsal", run_dress_rehearsal, data,
+                         counters, dev, card))
+    by_path.update(phase(46, "learnability", run_learnability, counters,
+                         card))
     shutil.rmtree(WORK, ignore_errors=True)
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
@@ -4357,7 +4720,8 @@ def main() -> int:
                             "frlw_evd_tpu_torch/csrc/bfm_chain.cu",
                             "frlw_evd_tpu/models/pallas_stem.py:59"),
         "int8_conv2d": ("int8_conv2d", ("gen1_int8", "gen4_int8",
-                                        "gen1_merged_int8", "export_int8"),
+                                        "gen1_merged_int8", "export_int8",
+                                        "learnability_int8"),
                         "frlw_evd_tpu_torch/csrc/int8_conv.cu",
                         "none (XLA conv, frlw_evd_tpu/models/quantize.py:283)"),
     }

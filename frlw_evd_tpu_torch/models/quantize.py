@@ -549,11 +549,18 @@ class int8_ctx:  # noqa: N801 (used as a context manager, like the JAX one)
     from its live weight, as the JAX interceptor does. The sites are
     prepared once, here, so one context serves every forward it wraps; a
     site the kernel does not take raises here. Empty scales make it a
-    no-op."""
+    no-op. act_dtype: when given, each site's input is cast to it before
+    the site quantizes it and the output cast back to the input's dtype
+    (an f32 network on the card, whose kernel reads bf16, passes
+    torch.bfloat16: its plain version is int8_conv2d_plain on the
+    bf16-rounded input, on either device); None quantizes the input as it
+    comes."""
 
-    def __init__(self, model: nn.Module, scales, table=None):
+    def __init__(self, model: nn.Module, scales, table=None, *,
+                 act_dtype=None):
         table, scales = table or {}, scales or {}
         self.sites, self.merged = {}, {}
+        self.act_dtype = act_dtype
         if not scales:
             return
         heads = merged_heads(model)
@@ -579,10 +586,22 @@ class int8_ctx:  # noqa: N801 (used as a context manager, like the JAX one)
 
     def __enter__(self):
         for conv, site in self.sites.values():
-            conv.forward = site
+            conv.forward = self._cast(site)
         for head, sites in self.merged.values():
-            head.merged_hook = sites
+            head.merged_hook = self._cast(sites)
         return self
+
+    def _cast(self, site):
+        """site (an Int8Site, or MergedSites on (k, layer, h)) on its last
+        argument cast to act_dtype, its output cast back."""
+        if self.act_dtype is None:
+            return site
+
+        def call(*args):
+            *rest, x = args
+            out = site(*rest, x.to(self.act_dtype))
+            return None if out is None else out.to(x.dtype)
+        return call
 
     def __exit__(self, *exc):
         for conv, _ in self.sites.values():

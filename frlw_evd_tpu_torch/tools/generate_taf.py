@@ -34,7 +34,7 @@ K = 8
 MAX_EVENTS_PER_BIN = 2**17
 
 
-def _finisher(enc_shape, target_shape, upscale: bool):
+def taf_finisher(enc_shape, target_shape, upscale: bool, K: int = K):
     """Queue (H', W', 2, K) → the (K, H, W) uint8 blob halves, newest bin
     first (oracle.taf_blob's layout), read to the host."""
     def finish(state):
@@ -60,7 +60,7 @@ def generate_taf(raw_dir: str, label_dir: str, target_dir: str,
     dev = resolve_device(device)
     target_shape, rh, rw, upscale, enc_shape = geometry(dataset)
     events_window = BIN_US * K
-    finish = _finisher(enc_shape, target_shape, upscale)
+    finish = taf_finisher(enc_shape, target_shape, upscale)
 
     out_dir = os.path.join(target_dir, "taf")
     stats = new_stats()

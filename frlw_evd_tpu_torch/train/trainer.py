@@ -50,6 +50,7 @@ from ..models.blocks import (BatchNorm2d, Dropout,
 from ..models.detector import (build_detector, build_memory_detector,
                                detector_loss, eval_decode, init_parameters_)
 from ..models.postprocess import finalize_detections, postprocess_batch
+from ..models.quantize import int8_ctx
 from ..models import red
 from ..parallel import dist
 from ..parallel.multihost import broadcast_object, gather_objects
@@ -311,15 +312,30 @@ def _train_step(losses_fn, half_precision: bool, device):
 
 def make_eval_step(strides, max_detections: int = 200,
                    half_precision: bool = False, *, patchify: bool = False,
-                   device="cuda"):
+                   quant=None, device="cuda"):
     """Returns eval_step(state, imgs) -> (dets, keep) (trainer.py:291-315):
     the model in eval mode on _compute_params (the volume patchified first
     when `patchify`), f32 decode, then postprocess_batch with its defaults
-    and `max_detections`."""
+    and `max_detections`. quant: an optional (act_scales, weight_table)
+    pair (models/quantize.py's calibrate_int8 and build_weight_table); the
+    forward then runs under int8_ctx, the calibrated sites through
+    int8_conv2d (the kernel on the card, its twin on the CPU), the sites
+    prepared from the model's weights at each call. On the card, whose
+    kernel reads bf16, an f32 network's sites quantize their input rounded
+    to bf16 (int8_ctx's act_dtype); on the CPU they quantize it in f32, as
+    JAX does."""
+    act_dtype = (torch.bfloat16 if resolve_device(device).type == "cuda"
+                 and not half_precision else None)
+
     def decode(model, imgs):
         if patchify:
             imgs = space_to_depth_patches(imgs)
-        return eval_decode(_forward(model, imgs, half_precision), strides)
+        if quant is None:
+            return eval_decode(_forward(model, imgs, half_precision),
+                               strides)
+        with int8_ctx(model, *quant, act_dtype=act_dtype):
+            return eval_decode(_forward(model, imgs, half_precision),
+                               strides)
 
     return _eval_step(decode, functools.partial(
         postprocess_batch, max_detections=max_detections), half_precision,

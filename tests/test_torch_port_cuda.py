@@ -398,6 +398,34 @@ def test_int8_site_matches_twin_bit_for_bit(cuda, k, stride, cin, cout, h,
     assert (out.abs() > 0).any()
 
 
+@pytest.mark.parametrize("k,stride,cin,cout,h,w", [
+    s for s in INT8_SHAPES if min(s[2:4]) >= quantize.MIN_CHANNELS] + [
+    # the 64x96 AED's smallest maps (a learnability -int8_eval site)
+    (3, 1, 64, 64, 2, 3), (3, 2, 128, 128, 4, 6)])
+def test_int8_site_on_f32_activation(cuda, k, stride, cin, cout, h, w):
+    """An f32 network's site on the card: a bare Int8Site (as int8_conv2d)
+    refuses an f32 activation; int8_ctx with act_dtype bf16 (the f32 eval
+    step's sites) launches once a call and equals int8_conv2d_plain on the
+    bf16-rounded input, cast back to f32, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(k * 1000 + cin + cout + 11)
+    conv = torch.nn.Conv2d(cin, cout, k, stride, (k - 1) // 2).to(cuda)
+    x = 2.0 * torch.randn(3, cin, h, w, device=cuda, generator=g)
+    ctx = quantize.int8_ctx(torch.nn.Sequential(conv), {"0": 3.0 / 127.0},
+                            act_dtype=torch.bfloat16)
+    (_, site), = ctx.sites.values()
+    with pytest.raises(ValueError, match="bf16"):
+        site(x)
+    before = int8_conv2d.launches
+    with torch.no_grad(), ctx:
+        out = conv(x)
+    want = int8_conv2d_plain(x.to(torch.bfloat16), site.wq, site.scale,
+                             site.inv, site.bias, stride=stride).float()
+    torch.cuda.synchronize()
+    assert int8_conv2d.launches == before + 1
+    assert out.dtype == torch.float32 and torch.equal(out, want)
+    assert (out.abs() > 0).any()
+
+
 @pytest.mark.parametrize("width,h,w", [(256, 32, 40), (64, 9, 7)])
 def test_merged_int8_sites_match_twin_bit_for_bit(cuda, width, h, w):
     """The merged head's int8 sites (quantize.MergedSites): layer 0 one

@@ -15,7 +15,9 @@ sites engage, 64x96 input) carries JAX's variables into the port
   within relative L2 0.02 of JAX's (tests/test_quantize.py:277's gate
   between two int8 forms), and the int8 maps within 0.08 of the port's
   bf16 maps (:132);
-- an input 100x past its calibration clips to finite outputs (:215).
+- an input 100x past its calibration clips to finite outputs (:215);
+- int8_ctx with act_dtype bf16 on the f32 model: every site exactly the
+  twin on its bf16-rounded input, the maps within 0.02 of the f32 sites'.
 The kernel itself is held to the twin on the card
 (tests/test_torch_port_cuda.py, chip_smoke.py).
 """
@@ -223,6 +225,41 @@ def test_int8_maps_close_to_jax_and_to_bf16(pair, jax_quant):
         quant = _heads(bf16, x, torch.bfloat16)
     for lvl, (m, b) in enumerate(zip(quant, base)):
         assert 1e-4 < _rel(m, b) < 0.08, (lvl, _rel(m, b))
+
+
+def test_act_dtype_rounds_each_site_input(pair, jax_quant):
+    """int8_ctx with act_dtype bf16 on the f32 model (what the f32 eval
+    step's sites run on the card, whose kernel reads bf16): every site's
+    output is int8_conv2d_plain on its bf16-rounded input, cast back to
+    f32, exactly; the head maps differ from those of the f32 sites but lie
+    within relative L2 0.02 of them."""
+    _, _, tmodel, _, x = pair
+    scales, table, _ = jax_quant
+    ctx = q.int8_ctx(tmodel, scales, _port_table(table),
+                     act_dtype=torch.bfloat16)
+    seen = []
+
+    def check(site):
+        def hook(_module, args, out):
+            want = q.int8_conv2d_plain(args[0].to(torch.bfloat16), site.wq,
+                                       site.scale, site.inv, site.bias,
+                                       stride=site.stride).float()
+            assert out.dtype == torch.float32 and torch.equal(out, want)
+            seen.append(1)
+        return hook
+    handles = [conv.register_forward_hook(check(site))
+               for conv, site in ctx.sites.values()]
+    try:
+        with ctx:
+            maps = _heads(tmodel, x)
+    finally:
+        for h in handles:
+            h.remove()
+    assert len(seen) == len(ctx.sites) == len(scales)
+    with q.int8_ctx(tmodel, scales, _port_table(table)):
+        f32_maps = _heads(tmodel, x)
+    for lvl, (m, f) in enumerate(zip(maps, f32_maps)):
+        assert 0 < _rel(m, f) < 0.02, (lvl, _rel(m, f))
 
 
 def test_uncalibrated_input_clips_safely(pair, jax_quant):
