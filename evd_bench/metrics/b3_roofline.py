@@ -1,0 +1,16 @@
+"""b3_roofline: kernel B3's share of its roofline over the profiled
+steps: the least time of its work (evd_bench/roofline/b3.py) over its
+device time in the trace."""
+
+from evd_bench import tracing
+from evd_bench.roofline import b3, bound_s
+
+
+def read(ctx):
+    t = tracing.kernel_seconds(ctx.profile, b3.TRACE) if ctx.profile else 0
+    if t <= 0:
+        return None
+    H, W = ctx.cfg["sensor_hw"]
+    steps = len(ctx.profile["pool_windows"])
+    work = b3.work(ctx.window["batch"], H, W, ctx.cfg["K"])
+    return 100.0 * steps * bound_s(work) / t
