@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import _build
+from ..utils.profiling import span
 
 
 LAYOUTS = ("folded", "p64")
@@ -220,8 +221,9 @@ def scatter_cnt_tsum(xytp: torch.Tensor, n_valid: torch.Tensor, *,
     chunk of MAX_SLOTS) makes its cell's t-sum NaN.
     """
     if xytp.device.type == "cpu":
-        return scatter_cnt_tsum_plain(xytp, n_valid, height=height,
-                                      width=width, layout=layout)
+        with span("kernel.b1"):
+            return scatter_cnt_tsum_plain(xytp, n_valid, height=height,
+                                          width=width, layout=layout)
     if xytp.device.type != "cuda":
         raise ValueError(f"scatter_cnt_tsum: unsupported device {xytp.device}")
     _check_inputs(xytp, n_valid, height, width, layout)
@@ -241,11 +243,12 @@ def _event_histogram(xytp, n_valid, height: int, width: int, layout: str,
     cnt = torch.empty(B, P, dtype=torch.float32, device=xytp.device)
     tsum = torch.empty(B, P, dtype=torch.float32, device=xytp.device)
     any_ev = torch.empty(B, dtype=torch.int32, device=xytp.device)
-    _build.launch("scatter_hist", "scatter_cnt_tsum",
-                  (xytp, n_valid, cnt, tsum, any_ev),
-                  (B, E, height, width, LAYOUTS.index(layout), plan.clusters,
-                   plan.cluster, plan.cells), xytp.device)
-    scatter_cnt_tsum.launches += 1
+    with span("kernel.b1"):
+        _build.launch("scatter_hist", "scatter_cnt_tsum",
+                      (xytp, n_valid, cnt, tsum, any_ev),
+                      (B, E, height, width, LAYOUTS.index(layout),
+                       plan.clusters, plan.cluster, plan.cells), xytp.device)
+        scatter_cnt_tsum.launches += 1
     return cnt, tsum, any_ev
 
 

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from ..kernels import _build
+from ..utils.profiling import span
 from .scatter import (event_cells, scatter_cnt_tsum,
                       scatter_cnt_tsum_pallas_sorted, scatter_cnt_tsum_sorted)
 from .taf import INIT_VALUE, _leaky_unit
@@ -115,8 +116,9 @@ def taf_update_leaky(state_f, cnt, tsum, any_ev, *, height: int, width: int):
     count the launch in `taf_update_leaky.launches`) or raise.
     """
     if state_f.device.type == "cpu":
-        return taf_update_leaky_plain(state_f, cnt, tsum, any_ev,
-                                      height=height, width=width)
+        with span("kernel.b2"):
+            return taf_update_leaky_plain(state_f, cnt, tsum, any_ev,
+                                          height=height, width=width)
     if state_f.device.type != "cuda":
         raise ValueError(f"taf_update_leaky: unsupported device "
                          f"{state_f.device}")
@@ -125,9 +127,10 @@ def taf_update_leaky(state_f, cnt, tsum, any_ev, *, height: int, width: int):
     C = WF // width
     if C not in (8, 16):
         raise ValueError(f"taf_update_leaky kernel takes 2K in (8, 16), got {C}")
-    vol = _launch("taf_update_leaky", state_f, cnt, tsum, any_ev,
-                  (B, H, width, C))
-    taf_update_leaky.launches += 1
+    with span("kernel.b2"):
+        vol = _launch("taf_update_leaky", state_f, cnt, tsum, any_ev,
+                      (B, H, width, C))
+        taf_update_leaky.launches += 1
     return state_f, vol
 
 
@@ -208,17 +211,19 @@ def taf_update_leaky_raw(state_f, cnt, tsum, any_ev, *, height: int,
     count the launch in `taf_update_leaky_raw.launches`) or raise.
     """
     if state_f.device.type == "cpu":
-        return taf_update_leaky_raw_plain(state_f, cnt, tsum, any_ev,
-                                          height=height, width=width)
+        with span("kernel.b3"):
+            return taf_update_leaky_raw_plain(state_f, cnt, tsum, any_ev,
+                                              height=height, width=width)
     if state_f.device.type != "cuda":
         raise ValueError(f"taf_update_leaky_raw: unsupported device "
                          f"{state_f.device}")
     _check_p64_geometry(state_f, height, width)
     _check_inputs(state_f, cnt, tsum, any_ev, height // 2, width * 2)
     B, H2, _ = state_f.shape
-    vol = _launch("taf_update_leaky_raw", state_f, cnt, tsum, any_ev,
-                  (B, H2, width // 2))
-    taf_update_leaky_raw.launches += 1
+    with span("kernel.b3"):
+        vol = _launch("taf_update_leaky_raw", state_f, cnt, tsum, any_ev,
+                      (B, H2, width // 2))
+        taf_update_leaky_raw.launches += 1
     return state_f, vol
 
 

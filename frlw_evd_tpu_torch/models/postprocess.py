@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
+
 
 def cxcywh_to_xyxy(boxes):
     half = boxes[..., 2:4] / 2
@@ -41,12 +43,20 @@ def nms_mask(boxes_xyxy, scores, valid, iou_threshold: float):
     """Greedy class-agnostic NMS over boxes sorted by descending score, as
     the fixpoint of keep[i] = valid[i] & ~any_{j<i}(keep[j] & iou[j,i] > t)
     (postprocess.py:32-61). Takes (..., K) batches; iterates until no keep
-    flag changes (at most K rounds; typically 2-4)."""
+    flag changes: at most K rounds, each a host sync (`torch.equal`). On the
+    benchmark's serving cells (B = 128, K = 100) the `nms_rounds` counter
+    reads 14.2-14.8 rounds a step at GEN1 and 13.3-13.7 at 1 Mpx on
+    average, 10-16 in single steps."""
     sup_edge = _suppression_edges(boxes_xyxy, iou_threshold)
     keep = valid
     for _ in range(boxes_xyxy.shape[-2]):
-        new = valid & ~(sup_edge & keep[..., :, None]).any(dim=-2)
-        if torch.equal(new, keep):
+        with span("serve.nms_round", events=False):
+            count("nms_rounds")
+            new = valid & ~(sup_edge & keep[..., :, None]).any(dim=-2)
+            with span("host_sync", events=False):
+                count("host_syncs")
+                same = torch.equal(new, keep)
+        if same:
             break
         keep = new
     return keep
@@ -93,15 +103,17 @@ def postprocess_batch(decoded, *, conf_threshold: float = 0.3,
     cls_probs = decoded[..., 5:]
     K = min(max_detections, decoded.shape[1])
 
-    sel_scores = torch.where(obj > conf_threshold, obj, -1.0)
-    top_scores, top_idx = torch.sort(sel_scores, dim=-1, descending=True,
-                                     stable=True)
-    top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
-    valid = top_scores > conf_threshold
+    with span("serve.select"):
+        sel_scores = torch.where(obj > conf_threshold, obj, -1.0)
+        top_scores, top_idx = torch.sort(sel_scores, dim=-1, descending=True,
+                                         stable=True)
+        top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
+        valid = top_scores > conf_threshold
 
-    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
-    top_cls = torch.gather(cls_probs, 1, top_idx[..., None].expand(
-        -1, -1, cls_probs.shape[-1]))
+        top_boxes = torch.gather(boxes, 1,
+                                 top_idx[..., None].expand(-1, -1, 4))
+        top_cls = torch.gather(cls_probs, 1, top_idx[..., None].expand(
+            -1, -1, cls_probs.shape[-1]))
     nms = {"fixpoint": nms_mask, "rounds": nms_mask_rounds,
            "sequential": nms_mask_sequential}[nms_impl]
     keep = nms(cxcywh_to_xyxy(top_boxes), top_scores, valid, nms_threshold)

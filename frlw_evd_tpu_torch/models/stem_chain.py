@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import _build
+from ..utils.profiling import span
 
 S = 4                       # subpixel blocks per pixel (2x2 space-to-depth)
 IN_CH = 16                  # 2K channels per subpixel block (K = 8)
@@ -304,16 +305,18 @@ def bfm_chain_apply_folded(vol_f, params, *, act: str = "silu",
     """
     _refuse_grad("bfm_chain_apply_folded", vol_f, params)
     if vol_f.device.type == "cpu":
-        return bfm_chain_apply_folded_plain(vol_f, params, act=act,
-                                            width=width)
+        with span("kernel.b4"):
+            return bfm_chain_apply_folded_plain(vol_f, params, act=act,
+                                                width=width)
     if vol_f.device.type != "cuda":
         raise ValueError(f"bfm_chain_apply_folded: unsupported device "
                          f"{vol_f.device}")
     _check_folded(vol_f, width, act)
     B, H2, _ = vol_f.shape
     out = torch.empty_like(vol_f)
-    _launch("bfm_chain_apply_folded", vol_f, params, out, B, H2, width)
-    bfm_chain_apply_folded.launches += 1
+    with span("kernel.b4"):
+        _launch("bfm_chain_apply_folded", vol_f, params, out, B, H2, width)
+        bfm_chain_apply_folded.launches += 1
     return out
 
 

@@ -53,6 +53,7 @@ from .models.detector import EventDetector, eval_decode
 from .models.postprocess import postprocess_batch
 from .models.quantize import build_weight_table, calibrate_int8, int8_ctx
 from .models.stems import BinsFusionModuleFolded
+from .utils.profiling import span
 
 K = 8
 STRIDES = (8, 16, 32)
@@ -104,18 +105,26 @@ def _attach_stages(encode_transform, model: EventDetector, quant=None):
     outputs in f32 (bench.py:170)."""
     ctx = int8_ctx(model, *(quant or (None, None)))  # no sites: a no-op
 
+    def encode(state_f, xytp, n_valid):
+        with span("serve.encode", new_step=True):
+            return encode_transform(state_f, xytp, n_valid)
+
     @torch.inference_mode()
     def detect(vol):
-        with ctx:
-            outs = model(vol)
-        decoded = eval_decode([o.float() for o in outs], STRIDES)
-        return postprocess_batch(decoded, max_detections=MAX_DETECTIONS)
+        with span("serve.detect"):
+            with span("serve.forward"), ctx:
+                outs = model(vol)
+            with span("serve.decode"):
+                decoded = eval_decode([o.float() for o in outs], STRIDES)
+            with span("serve.post"):
+                return postprocess_batch(decoded,
+                                         max_detections=MAX_DETECTIONS)
 
     def run_step(state_f, xytp, n_valid):
-        state_f, vol = encode_transform(state_f, xytp, n_valid)
+        state_f, vol = encode(state_f, xytp, n_valid)
         return state_f, detect(vol)
 
-    run_step.stages = {"encode_transform": encode_transform, "detect": detect}
+    run_step.stages = {"encode_transform": encode, "detect": detect}
     run_step.int8 = ctx
     return run_step
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -814,3 +815,49 @@ def test_folded_step_launches_b2_and_matches_cpu(cuda, scatter):
         torch.testing.assert_close(states[cuda].cpu(), states["cpu"],
                                    rtol=0, atol=0)
     assert taf_update_leaky.launches == before + 3
+
+
+def test_spans_on_card_time_the_stages_and_count_every_host_sync(cuda):
+    """Under profiling.recording(), the GEN1 slice on the card: the stage
+    and kernel spans carry device ms, the NMS loop's spans none, the
+    forward, decode and post tile the detect span's device time, and
+    torch.cuda's sync debug mode warns once for each counted host sync."""
+    from frlw_evd_tpu_torch.utils import profiling
+    model = build_detector(2, stem="bfm", in_channels=(32, 32, 32),
+                           stem_out_channels=16, head_width=32)
+    pipeline.spread_random_weights_(model, torch.Generator().manual_seed(1))
+    run = pipeline.make_pipeline_kernel(model, SENSOR, INPUT, device=cuda,
+                                        dtype=torch.float32)
+    state = pipeline.new_state(2, SENSOR, device=cuda)
+    ev, nv = pipeline.synth_events(np.random.default_rng(0), 3, 2, 1024,
+                                   SENSOR)
+    ev, nv = torch.from_numpy(ev).to(cuda), torch.from_numpy(nv).to(cuda)
+    state, _ = run(state, ev[0], nv[0])        # build and load the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")     # its first call warns once
+    profiling.clear_spans()
+    warned = []
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                profiling.recording():
+            warnings.simplefilter("always")
+            for i in (1, 2):
+                state, (dets, keep) = run(state, ev[i], nv[i])
+            warned = [w for w in caught if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    s = profiling.spans_summary()
+    assert s["steps"] == 2
+    assert s["counts"]["host_syncs"] == s["counts"]["nms_rounds"] \
+        == len(warned) >= 2
+    spans = s["spans"]
+    for name in ("serve.encode", "kernel.b1", "kernel.b2", "serve.detect",
+                 "serve.forward", "serve.decode", "serve.post",
+                 "serve.select"):
+        assert spans[name]["device_ms"] > 0, name
+    assert spans["serve.nms_round"]["device_ms"] is None
+    assert spans["host_sync"]["device_ms"] is None
+    parts = sum(spans[n]["device_ms"] for n in ("serve.forward",
+                                                "serve.decode", "serve.post"))
+    assert parts == pytest.approx(spans["serve.detect"]["device_ms"],
+                                  rel=0.02, abs=0.05)
