@@ -207,8 +207,9 @@ Phases (any failure exits non-zero; no phase catches and continues):
      step on the card, its losses finite;
  38. GEN1 serving with the merged head (head_merged) through
      make_pipeline_kernel, B = 128, E = 16384, phase 22's AED: bf16 maps
-     within relative L2 1e-3 of the canonical head's on the same weights
-     (and a planted BatchNorm slice fault beyond it);
+     within relative L2 1e-3 of the canonical head's on the same weights,
+     both with the separate epilogue passes (and a planted BatchNorm
+     slice fault beyond it);
      int8 calibrated on the merged model (the canonical site keys), the
      towers served as one Cout-512 site and one site a group a level
      (int8_conv2d launched 58 times a window where the canonical path
@@ -246,7 +247,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
      checkpoint (the full-width GEN1 AED, B = 128), bf16 and --fuse
      --int8, each with --check; each .pt2 loaded here and held to the live step built the
      same way (keep equal, dets within 1e-5), int8_conv2d launched 61
-     times a call of the int8 program; windows/s of the loaded program
+     times a call of the int8 program, the fused epilogue 62 times a call
+     of each; windows/s of the loaded program
      and the live step in turns;
  44. the utilities and the motion-level chain on phase 28's tree (240x304,
      its val split linked as the test split): tools.generate_opticalflow
@@ -269,9 +271,24 @@ Phases (any failure exits non-zero; no phase catches and continues):
      recipe): f32 AP50 at least LEARN_AP50, map_int8 within
      LEARN_INT8_GAP of map_f32_final, int8_conv2d launched, each launch
      of the int8 evaluation equal bit for bit to int8_conv2d_plain on its
-     bf16-rounded f32 input, wall seconds.
+     bf16-rounded f32 input, wall seconds;
+ 47. the conv blocks' fused epilogue (`models/epilogue.bn_act`,
+     csrc/bn_act.cu) at every site shape of the 1 Mpx and the GEN1 AED at
+     B = 128, each with its residual where the model has one: within one
+     bf16 ulp of its twin `bn_act_plain` (plus 2^-20 of the terms'
+     magnitude), times against its byte bound and against the separate
+     batch_norm, activation and add passes it replaced (library_ms), the
+     sum over each model's 62 sites, and the host's microseconds a site
+     on the served route (blocks.conv_epilogue), through the operator
+     frlw_evd_torch::bn_act that a trace calls, through the checked
+     wrapper and through the separate passes.
 Every phase that drives a path sets all launch counts to 0 just before it
-and reads them just after, and each phase prints its wall seconds. It
+and reads them just after, and each phase prints its wall seconds. Every
+serving path launches the fused epilogue once a site a forward (62 an AED
+window, 74 the yolox model's, 50 with the merged head, 62 a call of an
+exported program); the training steps launch none, and the Trainer's bf16
+validation launches it (those phases' "no kernel launched" leaves it
+out and prints its count). It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
 per cell order, each entry's launches and times from one path (every path
 that launches it under launches_by_path), and the nvidia-smi line before
@@ -309,6 +326,11 @@ B, E, E4, K = 128, 16384, 65536, 8
 GEN1_VOLUME = (*GEN1_INPUT, 2 * K)
 GEN4_VOLUME = (GEN4_SENSOR[0] // 2, GEN4_SENSOR[1] // 2 * 64)
 MAIN_WINDOWS = 4
+# conv epilogues (blocks.conv_epilogue) an eval forward of each served model
+# runs, each one launch of the fused kernel in bf16 on the card: the AED's
+# 62, the yolox model's 74, 50 with the merged head (its towers run their
+# own BatchNorm)
+EPILOGUE_SITES = {"aed": 62, "yolox": 74, "merged": 50}
 # HBM rate, f32 CUDA-core FMA rate and dense bf16 tensor-core rate (FLOP/s)
 # of the part nvidia-smi names (NVIDIA data sheets); a kernel's bound is the
 # largest of its bytes over the HBM rate and each type of its operations
@@ -562,10 +584,18 @@ def check_update(enc, ev_sets, dev, rate):
                 bound_by="bytes")
 
 
+def check_epilogue_launches(label, launches, sites, forwards):
+    """The fused conv epilogue launched once a site a forward."""
+    if launches["bn_act"] != sites * forwards:
+        raise SystemExit(f"{label}: the fused epilogue launched "
+                         f"{launches['bn_act']} times, not {sites} sites x "
+                         f"{forwards} forwards")
+
+
 def run_main_path(pipeline, counters, windows, dev, card, model=None,
-                  label="main path"):
+                  label="main path", sites=EPILOGUE_SITES["aed"]):
     """Phase 4: the GEN1 serving path at full width (phase 34: with the
-    yolox `model`); returns the launch counts of its run."""
+    yolox `model` and its `sites`); returns the launch counts of its run."""
     from frlw_evd_tpu_torch.models import build_detector
 
     if model is None:
@@ -594,6 +624,7 @@ def run_main_path(pipeline, counters, windows, dev, card, model=None,
                                  "taf_update_leaky")) < len(windows):
         raise SystemExit(f"{label} did not go through the kernels: "
                          f"{launches}")
+    check_epilogue_launches(label, launches, sites, len(windows))
 
     ev, nv = windows[0]
     enc_ms = time_ms(lambda: run.stages["encode_transform"](state, ev, nv))
@@ -835,6 +866,8 @@ def run_gen4_path(pipeline, counters, windows, dev, card):
     if min(launches[k] for k in need) < len(windows):
         raise SystemExit(f"gen4 path did not go through its kernels: "
                          f"{launches}")
+    check_epilogue_launches("gen4 path", launches, EPILOGUE_SITES["aed"],
+                            len(windows))
 
     ev, nv = windows[0]
     enc_ms = time_ms(lambda: run.stages["encode_transform"](state, ev, nv))
@@ -880,6 +913,8 @@ def run_p64_kernel_config(pipeline, counters, windows, dev):
     launches = {k: fn.launches for k, fn in counters.items()}
     if launches["bfm_chain_apply"] < len(windows):
         raise SystemExit(f"bfm_p64_kernel did not launch B7: {launches}")
+    check_epilogue_launches("bfm_p64_kernel", launches,
+                            EPILOGUE_SITES["aed"], len(windows))
     return launches
 
 
@@ -1202,6 +1237,8 @@ def drive(name, encode, detect, state, counters, windows, need):
     if min(launches[k] for k in need) < len(windows):
         raise SystemExit(f"{name} did not go through its kernels: "
                          f"{launches}")
+    check_epilogue_launches(name, launches, EPILOGUE_SITES["aed"],
+                            len(windows))
     return launches, state
 
 
@@ -1803,6 +1840,8 @@ def run_int8_path(pipeline, quantize, counters, windows, card, *, label,
             or min(launches[k] for k in need) < len(runs)):
         raise SystemExit(f"{label} int8 path: {sites} sites x {len(runs)} "
                          f"windows, launches {launches}")
+    check_epilogue_launches(f"{label} int8 path", launches,
+                            EPILOGUE_SITES["aed"], len(runs))
     ctx = quantize.int8_ctx(model, *quant)
     errs = int8_site_errors(model, vol, ctx)
     worst = max(errs, key=errs.get)
@@ -2170,6 +2209,8 @@ def run_serving_configs(pipeline, counters, dev, card):
         if any(launches[k] < len(windows) for k in need):
             raise SystemExit(f"{name} did not launch {need} on every "
                              f"window: {launches}")
+        check_epilogue_launches(name, launches, EPILOGUE_SITES["aed"],
+                                len(windows))
         ev, nv = windows[0]
         enc_ms = time_ms(lambda: encode(state, ev, nv), n=5)
         det_ms = time_ms(lambda: detect(vol), n=3)
@@ -2528,8 +2569,9 @@ def run_data_path(counters, dev, card, synthetic_train):
     the oracle's (BLOB_GATE); Trainer.train() of taf_bfm / gen1 (the AED
     256 wide, bfm stem, batch 64, bf16 over f32 masters) for TREE_EPOCHS
     epochs with validation every epoch, every loss and COCO stat finite,
-    last_epoch and best_epoch written, no kernel launched; one more epoch
-    under torch.profiler for the device's busy share; then cli.test in a
+    last_epoch and best_epoch written, no kernel launched but the bf16
+    validation's fused epilogue; one more epoch under torch.profiler for
+    the device's busy share; then cli.test in a
     subprocess on the val split as its test split, whose stats must equal
     the in-process validation of best_epoch to 1e-6. Prints ms/step and
     the share of it the loop waited for the loader, the evaluator's
@@ -2581,8 +2623,10 @@ def run_data_path(counters, dev, card, synthetic_train):
     trainer.train()
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    if any(launches.values()):
+    if any(v for k, v in launches.items() if k != "bn_act"):
         raise SystemExit(f"the Trainer launched a kernel: {launches}")
+    log(f"Trainer.train: the bf16 validation's fused epilogue launched "
+        f"{launches['bn_act']} times")
     hist = trainer.history
     if len(hist) != TREE_EPOCHS or any("val" not in h for h in hist):
         raise SystemExit(f"Trainer.train ran {len(hist)} epochs")
@@ -3116,7 +3160,8 @@ def run_yolox_path(pipeline, build_detector, counters, windows, dev, card):
     with a small yolox model. Returns the launch counts of its run."""
     launches = run_main_path(pipeline, counters, windows, dev, card,
                              model=yolox_gen1_model(build_detector, pipeline),
-                             label="yolox path")
+                             label="yolox path",
+                             sites=EPILOGUE_SITES["yolox"])
     check_small_against_cpu(pipeline, dev, family="yolox")
     return launches
 
@@ -3133,7 +3178,8 @@ def train_family(train, exp_type, data_path, labels, bins, counters, dev,
     """Trainer.train() of `exp_type` at `batch` for one epoch with
     validation, its config's geometry and widths, bf16 over f32 masters.
     Holds: at least 3 steps, every loss and COCO stat finite, best_epoch
-    written, no kernel launched. Then counts the FLOPs of one more train
+    written, no kernel launched but the bf16 validation's fused epilogue.
+    Then counts the FLOPs of one more train
     step (utils/profiling.flops_report, as phase 17 counts them), and
     runs Trainer.test() of a fresh Trainer on best_epoch with the val
     split as its test split (phase 28's links): its stats within 1e-6 of
@@ -3154,9 +3200,11 @@ def train_family(train, exp_type, data_path, labels, bins, counters, dev,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     launches = {k: fn.launches for k, fn in counters.items()}
-    if any(launches.values()):
+    if any(v for k, v in launches.items() if k != "bn_act"):
         raise SystemExit(f"{exp_type}: the Trainer launched a kernel: "
                          f"{launches}")
+    log(f"{exp_type}: the bf16 validation's fused epilogue launched "
+        f"{launches['bn_act']} times")
     hist = trainer.history
     if len(hist) != 1 or hist[0]["steps"] < 3 or "val" not in hist[0]:
         raise SystemExit(f"{exp_type}: Trainer.train ran {hist}")
@@ -3521,7 +3569,8 @@ def run_merged_head_path(pipeline, quantize, build_detector, counters,
     through make_pipeline_kernel, B = 128, E = 16384, AED 256 wide, stem
     bfm, B1 + B2 on every window. bf16: MAIN_WINDOWS windows, the head
     maps of the last within MERGED_BF16_REL of the canonical build's on
-    the same weights. int8: calibrated on the merged model (its scales
+    the same weights, both with the separate epilogue passes (the merged
+    towers keep theirs). int8: calibrated on the merged model (its scales
     keyed as the canonical model's sites), then INT8_WINDOWS windows:
     int8_conv2d launched (the canonical sites but the 12 tower convs, plus
     1 + 2 a level) x (windows) times; every canonical site within relative
@@ -3557,19 +3606,30 @@ def run_merged_head_path(pipeline, quantize, build_detector, counters,
         if min(by_path[path][k] for k in (B1, B2)) < n_windows:
             raise SystemExit(f"{label} did not go through B1 and B2: "
                              f"{by_path[path]}")
+        check_epilogue_launches(label, by_path[path],
+                                EPILOGUE_SITES["merged"], n_windows)
         return state, vol
 
     state, vol = drive_gen1(runs["merged"], "merged head path",
                             "gen1_merged", MAIN_WINDOWS, 0)
-    with torch.inference_mode():
-        rel = maps_rel_l2(merged(vol), canon(vol))
+    # the merged towers run their own BatchNorm and activation (two bf16
+    # roundings) where the canonical towers' BaseConvs fuse theirs (one),
+    # which alone moves the maps 3e-3-4e-3 on an H100: the heads are held
+    # to each other with every conv epilogue on the separate passes
+    from frlw_evd_tpu_torch.models import epilogue
+    kernel_device, epilogue.KERNEL_DEVICE = epilogue.KERNEL_DEVICE, "none"
+    try:
+        with torch.inference_mode():
+            rel = maps_rel_l2(merged(vol), canon(vol))
+        planted = planted_fault_rel(merged, canon, vol)
+    finally:
+        epilogue.KERNEL_DEVICE = kernel_device
     log(f"merged head against the canonical head, bf16 head maps on the "
         f"same weights, relative L2 per level: "
         + ", ".join(f"{r:.2e}" for r in rel))
     if not all(r < MERGED_BF16_REL for r in rel):
         raise SystemExit(f"merged head maps beyond relative L2 "
                          f"{MERGED_BF16_REL} of the canonical: {rel}")
-    planted = planted_fault_rel(merged, canon, vol)
     log(f"the gate against a planted fault (two channels of level 0's reg "
         f"tower layer-1 BatchNorm swapped), relative L2 per level: "
         + ", ".join(f"{r:.2e}" for r in planted))
@@ -3938,7 +3998,8 @@ def run_data_parallel(data, counters, dev, card, synthetic_train):
     +-lr, so the f32 parameters are printed, not gated). Then cli.train at world
     size 2 over gloo for one Trainer epoch of taf_bfm on phase 28's TAF
     blobs at batch TREE_BATCH: the checkpoint written once, every COCO
-    stat finite, no kernel launched."""
+    stat finite, no kernel launched but the bf16 validation's fused
+    epilogue."""
     from frlw_evd_tpu_torch.parallel import check
 
     out = WORK / "dp"
@@ -4020,7 +4081,7 @@ def run_data_parallel(data, counters, dev, card, synthetic_train):
     ranks = [torch.load(out / "cli" / f"rank{r}.pt", weights_only=False)
              ["cli"] for r in range(2)]
     for r in ranks:
-        if any(r["launches"].values()):
+        if any(v for k, v in r["launches"].items() if k != "bn_act"):
             raise SystemExit(f"the world-2 Trainer launched a kernel: "
                              f"{r['launches']}")
         if r["stats"] is None or not all(np.isfinite(r["stats"])):
@@ -4035,7 +4096,9 @@ def run_data_parallel(data, counters, dev, card, synthetic_train):
         f"{h['wall_s'] / h['steps'] * 1e3:.1f} ms/step, loader wait "
         f"{h['loader_wait_s'] / h['wall_s']:.1%}; COCO stats "
         + ", ".join(f"{v:.4f}" for v in ranks[0]["stats"])
-        + f"; checkpoints {ckpts}; no kernel launched; {wall:.1f} s")
+        + f"; checkpoints {ckpts}; no kernel launched but the "
+        f"validation's fused epilogue ({ranks[0]['launches']['bn_act']} "
+        f"on rank 0); {wall:.1f} s")
     shutil.rmtree(out, ignore_errors=True)
 
 
@@ -4048,8 +4111,8 @@ def run_export(counters, dev, card):
     22's AED (int8_gen1_model: the full-width GEN1 taf_bfm AED, weights
     spread so that boxes pass conf 0.3), saved as a checkpoint, bf16 and
     --fuse --int8, each with --check; then each .pt2 loaded here: the
-    int8 program launches int8_conv2d INT8_SITES_GEN1 times a call, and
-    keep and dets match the live step built here the same way (keep
+    int8 program launches int8_conv2d INT8_SITES_GEN1 times a call, each
+    program the fused epilogue once a site a call, and keep and dets match the live step built here the same way (keep
     equal, dets within atol 1e-5); windows/s of the loaded program and
     the live step, EXPORT_TIMED calls each, in turns (live, loaded,
     loaded, live). Returns the launches of the loaded programs' calls."""
@@ -4098,8 +4161,10 @@ def run_export(counters, dev, card):
         by_path[name] = launches
         sites = INT8_SITES_GEN1 if flags else 0
         if n_sites != sites or launches["int8_conv2d"] != sites or any(
-                v for k, v in launches.items() if k != "int8_conv2d"):
+                v for k, v in launches.items()
+                if k not in ("int8_conv2d", "bn_act")):
             raise SystemExit(f"{name}: {n_sites} sites, launches {launches}")
+        check_epilogue_launches(name, launches, EPILOGUE_SITES["aed"], 1)
         err = (got[0] - want[0]).abs().max().item()
         if (not torch.equal(got[1], want[1]) or not err <= 1e-5
                 or not 0 < int(want[1].sum()) < int((want[0][..., 5] > 0)
@@ -4466,6 +4531,198 @@ def run_learnability(counters, card):
     return {"learnability_int8": launches}
 
 
+# phase 47: images of a site the twin comparison holds at once, the stem
+# site it reports (the 1 Mpx AED's first conv), host calls a timing
+EPILOGUE_CHUNK = 16
+EPILOGUE_STEM = (64, GEN4_VOLUME[0], GEN4_VOLUME[1] // 64)
+EPILOGUE_HOST_CALLS = 1000
+
+
+def epilogue_site_shapes(model, volume):
+    """Counter({(C, H, W, residual): sites}) of `model`'s conv epilogues in
+    one eval forward of `volume` (one image): forward hooks on its
+    BaseConv and _PadInBaseConv blocks, `residual` whether the block was
+    handed one."""
+    from frlw_evd_tpu_torch.models.blocks import BaseConv
+    from frlw_evd_tpu_torch.models.stems import _PadInBaseConv
+
+    shapes = Counter()
+
+    def hook(_module, args, out):
+        shapes[(*out.shape[1:], len(args) > 1 and args[1] is not None)] += 1
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (BaseConv, _PadInBaseConv))]
+    with torch.inference_mode():
+        model(volume)
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def bf16_ulps_over(got, want, x, params, eps, residual):
+    """The largest |got - want| beyond one bf16 ulp of the larger of the
+    two and 2^-20 of the magnitude of the f32 terms summed (|x * scale| +
+    |mean * scale| + |bias| + |r|: the kernel folds shift = bias - mean *
+    scale, the twin subtracts mean from x first, and at B = 128 some
+    elements meet bias and mean * scale of 0.9 cancelling to 1e-6): at
+    most 0 where the two lie within one rounding of each other. Also the
+    largest |got - want|."""
+    a, b = got.double(), want.double()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = torch.where(big > 0, torch.ldexp(torch.ones_like(big),
+                                           torch.frexp(big).exponent - 8),
+                      torch.zeros_like(big))
+    mean, var, weight, bias = (t.double().view(1, -1, 1, 1) for t in params)
+    scale = weight * torch.rsqrt(var + eps)
+    mag = (x.double() * scale).abs() + (mean * scale).abs() + bias.abs()
+    if residual is not None:
+        mag = mag + residual.double().abs()
+    diff = (a - b).abs()
+    return ((diff - ulp - mag * 2.0 ** -20).max().item(),
+            diff.max().item())
+
+
+def epilogue_host_us(dev):
+    """Host microseconds a call of one tiny site (1 x 64 x 8 x 8, where the
+    card outruns the host): the served route (blocks.conv_epilogue: the
+    checks, then epilogue.apply), the operator frlw_evd_torch::bn_act
+    that a trace calls, the checked wrapper epilogue.bn_act, and the
+    separate BatchNorm module and silu that the route replaced; the
+    median of three turns of EPILOGUE_HOST_CALLS calls each."""
+    from frlw_evd_tpu_torch.models import epilogue
+    from frlw_evd_tpu_torch.models.blocks import conv_epilogue
+
+    bn = torch.nn.BatchNorm2d(64).to(dev, torch.bfloat16).eval()
+    y = torch.randn(1, 8, 8, 64, device=dev).to(torch.bfloat16).permute(
+        0, 3, 1, 2)
+    args = (y, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+            "silu", None)
+    calls = {"served": lambda: conv_epilogue(y, bn, "silu"),
+             "operator": lambda: torch.ops.frlw_evd_torch.bn_act(*args),
+             "wrapper": lambda: epilogue.bn_act(*args),
+             "separate": lambda: torch.nn.functional.silu(bn(y))}
+    us = {k: [] for k in calls}
+    with torch.inference_mode():
+        for _ in range(3):
+            for name, fn in calls.items():
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EPILOGUE_HOST_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                us[name].append((time.perf_counter() - t0)
+                                / EPILOGUE_HOST_CALLS * 1e6)
+    return {k: sorted(v)[1] for k, v in us.items()}
+
+
+def check_epilogue_kernel(pipeline, rate, card_name):
+    """Phase 47 (see the module's docstring). Returns the kernel's row:
+    its ms, the twin's and the separate passes' at the 1 Mpx stem site
+    without a residual (ms_by_set: with one too), every site shape's under
+    by_site, each model's sum over its sites under step_ms, and the host
+    microseconds a site under host_us."""
+    import torch.nn.functional as F
+
+    from frlw_evd_tpu_torch.models import build_detector, epilogue
+
+    dev = torch.device("cuda")
+    gen4 = build_detector(7, stem="bfm_folded",
+                          generator=torch.Generator().manual_seed(0))
+    gen1 = build_detector(2, stem="bfm",
+                          generator=torch.Generator().manual_seed(0))
+    shapes = {}
+    for label, model, volume in (("gen4", gen4, GEN4_VOLUME),
+                                 ("gen1", gen1, GEN1_VOLUME)):
+        pipeline._serving_model(model, dev, torch.bfloat16)
+        shapes[label] = epilogue_site_shapes(
+            model, torch.zeros(1, *volume, dtype=torch.bfloat16, device=dev))
+        if sum(shapes[label].values()) != EPILOGUE_SITES["aed"]:
+            raise SystemExit(f"{label} AED: {sum(shapes[label].values())} "
+                             f"epilogue sites, not {EPILOGUE_SITES['aed']}")
+    del gen4, gen1
+    cases = sorted({k for c in shapes.values() for k in c}
+                   | {(*EPILOGUE_STEM, True)})
+    g = torch.Generator(device=dev).manual_seed(0)
+    eps, by_site, worst_ulps, worst_abs = 1e-5, {}, -1.0, 0.0
+    for C, H, W, res in cases:
+        def draw():
+            return torch.randn(B, H, W, C, device=dev, generator=g).mul_(
+                3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        x = draw()
+        r = draw() if res else None
+        params = [torch.randn(C, device=dev, generator=g),
+                  torch.rand(C, device=dev, generator=g) + 0.5,
+                  torch.rand(C, device=dev, generator=g) + 1.0,
+                  torch.randn(C, device=dev, generator=g) * 0.5]
+        params = [t.to(torch.bfloat16) for t in params]
+        before = epilogue.bn_act.launches
+        got = epilogue.bn_act(x, *params, eps, "silu", r)
+        if (epilogue.bn_act.launches != before + 1
+                or got.stride() != x.stride()):
+            raise SystemExit(f"bn_act {(C, H, W)}: launches or layout")
+        for n0 in range(0, B, EPILOGUE_CHUNK):
+            part = slice(n0, n0 + EPILOGUE_CHUNK)
+            rp = None if r is None else r[part]
+            want = epilogue.bn_act_plain(x[part], *params, eps, "silu", rp)
+            over, diff = bf16_ulps_over(got[part], want, x[part], params,
+                                        eps, rp)
+            worst_ulps, worst_abs = max(worst_ulps, over), max(worst_abs,
+                                                               diff)
+            if over > 0:
+                raise SystemExit(f"bn_act {(B, C, H, W)} residual {res}: "
+                                 f"{over} beyond one bf16 ulp of its twin")
+        del got, want
+
+        def separate():
+            y = F.silu(F.batch_norm(x, *params, False, 0.0, eps))
+            return y if r is None else y + r
+        by_site[(C, H, W, res)] = {
+            "shape": [B, C, H, W], "residual": res,
+            "sites": {k: c[(C, H, W, res)] for k, c in shapes.items()
+                      if (C, H, W, res) in c},
+            "ms": time_ms(lambda: epilogue.bn_act(x, *params, eps, "silu",
+                                                  r)),
+            "plain_ms": time_ms(lambda: epilogue.bn_act_plain(
+                x, *params, eps, "silu", r), n=3),
+            "library_ms": time_ms(separate),
+            "bound_ms": (3 if res else 2) * x.numel() * 2 / rate * 1e3}
+        del x, r
+        torch.cuda.empty_cache()
+    step_ms = {}
+    for label, counts in shapes.items():
+        step_ms[label] = {k: sum(by_site[s][k] * n for s, n in counts.items())
+                          for k in ("ms", "library_ms", "bound_ms")}
+    host_us = epilogue_host_us(dev)
+    stem, stem_res = by_site[(*EPILOGUE_STEM, False)], by_site[
+        (*EPILOGUE_STEM, True)]
+    for (C, H, W, res), row in by_site.items():
+        log(f"bn_act B = {B}, C {C}, {H}x{W}, residual {res} (sites "
+            f"{row['sites']}): {row['ms']:.4f} ms, the twin "
+            f"{row['plain_ms']:.4f}, the separate passes "
+            f"{row['library_ms']:.4f}, byte bound {row['bound_ms']:.4f} "
+            f"({row['bound_ms'] / row['ms']:.1%} of it)")
+    for label, row in step_ms.items():
+        log(f"bn_act over the {label} AED's {EPILOGUE_SITES['aed']} sites at "
+            f"B = {B}: {row['ms']:.3f} ms, the separate passes "
+            f"{row['library_ms']:.3f}, byte bound {row['bound_ms']:.3f}")
+    log(f"bn_act host us a site on {card_name}: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in host_us.items()))
+    log(f"bn_act against its twin: every site shape within one bf16 ulp "
+        f"(largest excess {worst_ulps:.3g}, largest difference "
+        f"{worst_abs:.3g})")
+    return dict(max_abs_err=worst_abs, ms=stem["ms"],
+                plain_ms=stem["plain_ms"], library_ms=stem["library_ms"],
+                bound_ms=stem["bound_ms"], bound_by="bytes",
+                ms_by_set={"stem": stem["ms"], "stem_residual":
+                           stem_res["ms"]},
+                library_ms_by_set={"stem": stem["library_ms"],
+                                   "stem_residual": stem_res["library_ms"]},
+                by_site=list(by_site.values()), step_ms=step_ms,
+                host_us=host_us)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4474,7 +4731,7 @@ def main() -> int:
     from frlw_evd_tpu_torch import encode as enc
     from frlw_evd_tpu_torch import pipeline
     from frlw_evd_tpu_torch.kernels import _build
-    from frlw_evd_tpu_torch.models import quantize, stem_chain
+    from frlw_evd_tpu_torch.models import epilogue, quantize, stem_chain
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4493,7 +4750,8 @@ def main() -> int:
                 "taf_update_leaky_v2": enc.taf_update_leaky_v2,
                 "bfm_chain_apply_folded": stem_chain.bfm_chain_apply_folded,
                 "bfm_chain_apply": stem_chain.bfm_chain_apply,
-                "int8_conv2d": quantize.int8_conv2d}
+                "int8_conv2d": quantize.int8_conv2d,
+                "bn_act": epilogue.bn_act}
 
     t0 = time.perf_counter()
     build_logs = _build.build()
@@ -4662,6 +4920,9 @@ def main() -> int:
                          counters, dev, card))
     by_path.update(phase(46, "learnability", run_learnability, counters,
                          card))
+    torch.cuda.empty_cache()
+    rows["bn_act"] = phase(47, "conv epilogue", check_epilogue_kernel,
+                           pipeline, rate, name)
     shutil.rmtree(WORK, ignore_errors=True)
 
     # entry: (wrapper, paths that launch it in the entry's cell order (B1)
@@ -4724,6 +4985,16 @@ def main() -> int:
                                         "learnability_int8"),
                         "frlw_evd_tpu_torch/csrc/int8_conv.cu",
                         "none (XLA conv, frlw_evd_tpu/models/quantize.py:283)"),
+        "bn_act": ("bn_act", ("gen4", "gen1", "gen4_bfm_p64_kernel",
+                              "gen4_sorted", "gen4_precise", "gen1_int8",
+                              "gen4_int8", "gen1_taf_dense", "gen1_taf_p64",
+                              "gen1_taf_packed", "gen4_taf_packed",
+                              "gen4_taf_xla", "gen1_yolox", "gen1_merged",
+                              "gen1_merged_int8", "gen1_taf_stem",
+                              "export_bf16", "export_int8"),
+                   "frlw_evd_tpu_torch/csrc/bn_act.cu",
+                   "none (XLA fuses BatchNorm and the activation into the "
+                   "conv, frlw_evd_tpu/models/blocks.py:177-221)"),
     }
     for wrapper in counters:          # every launching path is listed
         listed = {p for w, paths, _, _ in meta.values() if w == wrapper
@@ -4753,7 +5024,8 @@ def main() -> int:
                                                "ms_1x1", "int_mm_1x1_ms",
                                                "by_site", "map_host_us",
                                                "gen4", "merged",
-                                               "stream_infer_b1")
+                                               "stream_infer_b1",
+                                               "step_ms", "host_us")
                            if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(card)

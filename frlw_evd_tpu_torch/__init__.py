@@ -17,7 +17,7 @@ step, `tools/export_model.py`. Importing the package registers its
 torch.library operators (`ops.py`), which a loaded `.pt2` calls.
 """
 
-from . import ops  # noqa: F401  (registers frlw_evd_torch::int8_conv2d)
+from . import ops  # noqa: F401  (registers frlw_evd_torch::int8_conv2d, bn_act)
 
 __all__ = ["encode", "models", "ops", "parallel", "pipeline", "train",
            "utils", "weights"]

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("scatter_hist", "scatter_sorted", "scatter_dense", "taf_update",
-           "bfm_chain", "int8_conv")
+           "bfm_chain", "int8_conv", "bn_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source link flags: int8_conv finds cuTensorMapEncodeTiled with dlsym

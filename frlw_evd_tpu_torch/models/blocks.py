@@ -10,6 +10,7 @@ process group shards it (parallel/dist.py).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Sequence
 
 import torch
@@ -17,18 +18,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import dist
+from ..utils import profiling
+from . import epilogue
+
+_ACTIVATIONS = {"silu": F.silu, "relu": F.relu,
+                "lrelu": partial(F.leaky_relu, negative_slope=0.1),
+                # jax.nn.gelu's default
+                "gelu": partial(F.gelu, approximate="tanh")}
 
 
 def get_activation(name: str = "silu") -> Callable:
-    if name == "silu":
-        return F.silu
-    if name == "relu":
-        return F.relu
-    if name == "lrelu":
-        return lambda x: F.leaky_relu(x, 0.1)
-    if name == "gelu":
-        return lambda x: F.gelu(x, approximate="tanh")   # jax.nn.gelu default
-    raise ValueError(f"Unsupported act type: {name}")
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"Unsupported act type: {name}")
+    return _ACTIVATIONS[name]
 
 
 class PatchFusedConv2d(nn.Module):
@@ -296,13 +298,55 @@ class BaseConv(nn.Module):
                                   (ksize - 1) // 2, groups=groups, bias=bias)
         self.bn = BatchNorm2d(out_channels, eps=1e-5)
         self.drop = Dropout(dropout) if dropout > 0 else None
-        self.act = get_activation(act)
+        self.act_name = act
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
-        if self.drop is not None:
-            x = self.drop(x)
-        return self.act(x)
+    def forward(self, x, residual=None):
+        """act(bn(conv(x))), plus `residual` where given (a ResLayer's or a
+        Bottleneck's shortcut), through `conv_epilogue`."""
+        return conv_epilogue(self.conv(x), self.bn, self.act_name, self.drop,
+                             residual)
+
+
+def _fuses(y, bn, act_name: str, drop, residual, traced: bool) -> bool:
+    """Whether the epilogue of conv output y runs as one pass: an eval
+    forward that records no gradient, y on the kernel's device
+    (`epilogue.KERNEL_DEVICE`), the BatchNorm with running statistics, any
+    dropout in eval, and operands the kernel takes (`epilogue.refusal`)."""
+    return (y.device.type == epilogue.KERNEL_DEVICE
+            and (drop is None or not drop.training)
+            and epilogue.refusal(y, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, act_name, residual,
+                                 traced=traced) is None
+            and not (torch.is_grad_enabled() and (
+                y.requires_grad or bn.weight.requires_grad
+                or (residual is not None and residual.requires_grad))))
+
+
+def conv_epilogue(y, bn, act_name: str, drop=None, residual=None):
+    """BatchNorm `bn` → dropout `drop` (or None) → activation `act_name`
+    (→ + residual) of a conv block's output y.
+
+    At eval, where `_fuses` finds that it applies, one pass of the kernel
+    on the card (`epilogue.apply`; while torch.export traces, the operator
+    frlw_evd_torch::bn_act), counted as `epilogue_fused`; every other eval
+    forward takes the separate passes and counts `epilogue_plain`.
+    Training counts neither, nor does a trace."""
+    if not bn.training:
+        traced = torch.compiler.is_compiling()
+        fused = _fuses(y, bn, act_name, drop, residual, traced)
+        if not traced:
+            profiling.count("epilogue_fused" if fused else "epilogue_plain")
+        if fused:
+            args = (y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                    bn.eps, act_name, residual)
+            if traced:
+                return torch.ops.frlw_evd_torch.bn_act(*args)
+            return epilogue.apply(*args)
+    y = bn(y)
+    if drop is not None:
+        y = drop(y)
+    y = get_activation(act_name)(y)
+    return y if residual is None else y + residual
 
 
 class DWConv(nn.Module):
@@ -317,8 +361,8 @@ class DWConv(nn.Module):
                               groups=in_channels, act=act)
         self.pconv = BaseConv(in_channels, out_channels, 1, act=act)
 
-    def forward(self, x):
-        return self.pconv(self.dconv(x))
+    def forward(self, x, residual=None):
+        return self.pconv(self.dconv(x), residual)
 
 
 class Bottleneck(nn.Module):
@@ -336,8 +380,7 @@ class Bottleneck(nn.Module):
         self.add = shortcut and in_channels == out_channels
 
     def forward(self, x):
-        y = self.conv2(self.conv1(x))
-        return y + x if self.add else y
+        return self.conv2(self.conv1(x), x if self.add else None)
 
 
 class ResLayer(nn.Module):
@@ -349,7 +392,7 @@ class ResLayer(nn.Module):
         self.layer2 = BaseConv(in_channels // 2, in_channels, 3, act=act)
 
     def forward(self, x):
-        return x + self.layer2(self.layer1(x))
+        return self.layer2(self.layer1(x), x)
 
 
 class SPPBottleneck(nn.Module):

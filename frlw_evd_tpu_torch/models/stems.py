@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BaseConv, Dropout, get_activation
+from .blocks import BaseConv, Dropout, conv_epilogue, get_activation
 from .stem_chain import bfm_chain_apply, bfm_chain_apply_folded
 
 S = 4                # subpixel blocks of a patchified pixel
@@ -226,17 +226,19 @@ class PadKernelConv2d(nn.Module):
 
 class _PadInBaseConv(nn.Module):
     """PadKernelConv2d → BatchNorm → act (stems.py:313-331); the BatchNorm
-    computes in its parameters' dtype."""
+    computes in its parameters' dtype. The epilogue is BaseConv's
+    (`conv_epilogue`): one pass at eval in bf16 on the card."""
 
     def __init__(self, real_in: int, out_channels: int, ksize: int = 3,
                  act: str = "silu"):
         super().__init__()
         self.conv = PadKernelConv2d(real_in, out_channels, ksize)
         self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
-        self.act = get_activation(act)
+        self.act_name = act
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x).to(self.bn.weight.dtype)))
+        return conv_epilogue(self.conv(x).to(self.bn.weight.dtype), self.bn,
+                             self.act_name)
 
 
 class BinsFusionModuleFolded(_BFMChain):

@@ -11,6 +11,18 @@ output's shape, dtype and layout (channels_last, as the kernel writes it
 and the twin's conv does). The package imports this module, so importing
 frlw_evd_tpu_torch registers the operator before a `.pt2` that calls it
 is loaded.
+
+frlw_evd_torch::bn_act(x, mean, var, weight, bias, eps, act, residual) is
+`models/epilogue.bn_act`, the conv blocks' eval BatchNorm, activation and
+residual add in one pass: on CPU tensors its plain twin, on CUDA tensors
+csrc/bn_act.cu. `blocks.conv_epilogue` calls it while torch.export traces
+(eagerly it calls `epilogue.apply`, whose host cost a site is 12-13 us
+below the operator's dispatch: chip_smoke.py phase 47). A trace's strides
+are a guess (torch.export's fake convs on CUDA give NCHW
+where cuDNN writes channels_last), so the operator takes x and the
+residual in any layout and lays them out channels_last (a no-op on a
+served model's conv outputs), and its output is channels_last, as its
+fake implementation says.
 """
 
 from __future__ import annotations
@@ -49,3 +61,20 @@ def _empty_out(x, wq, stride: int) -> torch.Tensor:
 @int8_conv2d.register_fake
 def _(x, wq, scale, inv, bias, stride):
     return _empty_out(x, wq, stride)
+
+
+@torch.library.custom_op("frlw_evd_torch::bn_act", mutates_args=())
+def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+           weight: torch.Tensor, bias: torch.Tensor, eps: float, act: str,
+           residual: Optional[torch.Tensor]) -> torch.Tensor:
+    from .models.epilogue import bn_act as run
+
+    cl = torch.channels_last
+    return run(x.contiguous(memory_format=cl), mean, var, weight, bias, eps,
+               act, None if residual is None
+               else residual.contiguous(memory_format=cl))
+
+
+@bn_act.register_fake
+def _(x, mean, var, weight, bias, eps, act, residual):
+    return torch.empty_like(x, memory_format=torch.channels_last)

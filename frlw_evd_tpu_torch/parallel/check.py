@@ -296,7 +296,7 @@ def case_trainer(dev, trainer=None):
 def kernel_counters() -> dict:
     """{name: wrapper} of every kernel wrapper that counts its launches."""
     from .. import encode
-    from ..models import quantize, stem_chain
+    from ..models import epilogue, quantize, stem_chain
 
     names = ("scatter_cnt_tsum", "scatter_cnt_tsum_pallas_sorted",
              "scatter_cnt_tsum_pallas", "taf_update_leaky",
@@ -304,7 +304,8 @@ def kernel_counters() -> dict:
     return {**{n: getattr(encode, n) for n in names},
             "bfm_chain_apply_folded": stem_chain.bfm_chain_apply_folded,
             "bfm_chain_apply": stem_chain.bfm_chain_apply,
-            "int8_conv2d": quantize.int8_conv2d}
+            "int8_conv2d": quantize.int8_conv2d,
+            "bn_act": epilogue.bn_act}
 
 
 def case_cli(dev, cli=None):
