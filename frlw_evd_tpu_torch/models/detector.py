@@ -1,9 +1,10 @@
 """Composite detectors (counterpart of frlw_evd_tpu/models/detector.py):
 stem + backbone → neck → head for the AED, swin_darknet (taf_syn) and
 yolox families, with their training loss and the merged head towers
-(`head_merged`), and the recurrent `MemoryEventDetector` (backbone →
-per-level ConvLSTM / ConvGRU memory → neck → head) of the convlstm and
-recconv families with `rollout_memory_detector`.
+(`head_merged`), RED (models/red.py) for the serving path, and the
+recurrent `MemoryEventDetector` (backbone → per-level ConvLSTM / ConvGRU
+memory → neck → head) of the convlstm and recconv families with
+`rollout_memory_detector`.
 
 `EventDetector` takes the JAX layout at its boundary and returns per-level
 NHWC head maps; inside it runs NCHW (channels_last in memory when the input
@@ -16,6 +17,7 @@ volume (N, H, W, 2K) for `focus`, `bfm`, `taf`, `taf_3d`, `taf_swin` and
 
 from __future__ import annotations
 
+import inspect
 import math
 from functools import partial
 from typing import Sequence
@@ -29,6 +31,7 @@ from .heads import (YOLOXHead, compute_losses, decode_outputs,
                     flatten_level_outputs, level_grids)
 from .memory import MemoryModel, carries_nchw, carries_nhwc
 from .pafpn import YOLOPAFPN
+from .red import REDDetector
 from .stems import (BinsFusionModule, BinsFusionModuleFolded,
                     BinsFusionModulePatched, BinsFusionModulePatchedKernel,
                     FocusPatched, PadKernelConv2d, TemporalActiveFocus,
@@ -37,6 +40,10 @@ from .stems import (BinsFusionModule, BinsFusionModuleFolded,
 from .swin3d import (CorrAttention3D, TemporalActiveFocusCorr,
                      TemporalActiveFocusSwin, WindowAttention3D)
 from .yolov3 import YOLOv3Head
+
+# RED's SSD pyramid: five 256-wide ConvLSTM levels at these strides
+RED_IN_CHANNELS = (256,) * 5
+RED_STRIDES = (32, 64, 128, 256, 512)
 
 # the p64 variants have the parameters of focus / bfm (detector.py:93-106)
 _STEMS = {"focus": Focus, "taf": TemporalActiveFocus,
@@ -157,14 +164,18 @@ def build_detector(num_classes: int, *, family: str = "aed",
                    head_width: int = 256, input_channels: int = 16,
                    generator: torch.Generator | None = None,
                    train: bool = False, dropout_rate: float = 0.1,
-                   head_merged: bool = False) -> EventDetector:
+                   head_merged: bool = False) -> nn.Module:
     """The exp-type model matrix (detector.py:109-143). family "aed":
     Darknet-21 + YOLOPAFPN + YOLOXHead, `in_channels` wide;
     "swin_darknet": the same with SwinDarknet (a TemporalActiveFocus3D
     stem beside `stem`); "yolox": CSPDarknet (dep_mul 0.33, wid_mul 0.5) +
     YOLOPAFPN at depth 0.33 over its (128, 256, 512) channels + YOLOXHead,
     as JAX sets them whatever `in_channels`, `depth` and
-    `stem_out_channels` say. stem: one of _STEMS. input_channels is the
+    `stem_out_channels` say; "red": `REDDetector` (SE-ResNet, five
+    ConvLSTMs, SSD head), whose pyramid must be named as it is,
+    in_channels RED_IN_CHANNELS at strides RED_STRIDES, and which takes
+    none of the other families' arguments but the defaults (`_build_red`).
+    stem: one of _STEMS. input_channels is the
     volume's 2K (per subpixel block for the p64 stems). head_merged runs
     each level's cls and reg towers as two double-width convs on the same
     parameters (one checkpoint serves both heads).
@@ -173,6 +184,13 @@ def build_detector(num_classes: int, *, family: str = "aed",
     training mode when `train`. dropout_rate is the BFM stems' dropout in
     training (stems.py:100), taken by every BFM stem; the kernel stems
     refuse training."""
+    if family == "red":
+        return _build_red(num_classes, input_channels, tuple(in_channels),
+                          tuple(strides), generator, train, stem=stem,
+                          act=act, depth=depth,
+                          stem_out_channels=stem_out_channels,
+                          head_width=head_width, head_merged=head_merged,
+                          dropout_rate=dropout_rate)
     stem_cls = _stem_class(stem, dropout_rate)
     if family in ("aed", "swin_darknet"):
         backbone = (Darknet if family == "aed" else SwinDarknet)(
@@ -183,8 +201,8 @@ def build_detector(num_classes: int, *, family: str = "aed",
         backbone = CSPDarknet(stem_cls, input_channels, dep_mul=0.33,
                               wid_mul=0.5, act=act)
     else:
-        raise ValueError(f"the port builds families 'aed', 'swin_darknet' "
-                         f"and 'yolox', got {family!r}")
+        raise ValueError(f"the port builds families 'aed', 'swin_darknet', "
+                         f"'yolox' and 'red', got {family!r}")
     neck = YOLOPAFPN(depth=depth, in_channels=tuple(in_channels), act=act)
     head = YOLOXHead(num_classes, tuple(in_channels), strides=strides,
                      width=head_width, act=act, merged=head_merged)
@@ -192,6 +210,29 @@ def build_detector(num_classes: int, *, family: str = "aed",
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_parameters_(model, generator)
+    return model.train(train)
+
+
+def _build_red(num_classes: int, input_channels: int, in_channels,
+               strides, generator, train: bool, **aed_args) -> REDDetector:
+    """build_detector's family "red": REDDetector with seeded parameters
+    (init_parameters_, as the red Trainer's model). Its pyramid is fixed by
+    the model, so in_channels and strides must describe it; the AED's own
+    arguments must keep their defaults."""
+    if in_channels != RED_IN_CHANNELS or strides != RED_STRIDES:
+        raise ValueError(
+            f"RED's SSD pyramid is five ConvLSTM levels, 256 channels each, "
+            f"at strides {RED_STRIDES}: pass in_channels={RED_IN_CHANNELS} "
+            f"and strides={RED_STRIDES}; got in_channels={in_channels}, "
+            f"strides={strides}")
+    defaults = inspect.signature(build_detector).parameters
+    changed = sorted(k for k, v in aed_args.items()
+                     if v != defaults[k].default)
+    if changed:
+        raise ValueError(f"family 'red' takes none of the AED's arguments "
+                         f"{changed}; RED's widths are fixed (models/red.py)")
+    model = REDDetector(num_classes, input_channels)
+    init_parameters_(model, generator or torch.Generator().manual_seed(0))
     return model.train(train)
 
 

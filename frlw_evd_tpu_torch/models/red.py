@@ -5,9 +5,12 @@ pyramid, and the SSD box head with its priors, variance coding,
 hard-negative-mined focal / smooth-L1 MultiBox loss and per-prior decode.
 
 The network runs NCHW inside; `REDDetector` takes the NHWC volume and the
-carries in the JAX layout (NHWC (h, c) pairs) and returns them so. The
-loss is batched over the samples where JAX vmaps it; the prior
-assignment's forced matches are a deterministic last-wins scatter.
+carries in the JAX layout (NHWC (h, c) pairs) and returns them so. Its
+forward names its parts as spans (utils/profiling.py): `serve.backbone`
+(the SE-ResNet) and `serve.memory` (the five ConvLSTMs), which the
+serving step reads inside `serve.forward`. The loss is batched over the
+samples where JAX vmaps it; the prior assignment's forced matches are a
+deterministic last-wins scatter.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import dist
+from ..utils.profiling import span
 from .blocks import BatchNorm2d, PromotingConv2d
 from .memory import ConvLSTMCell, carries_nchw, carries_nhwc
 
@@ -145,8 +149,10 @@ class REDDetector(nn.Module):
 
     def forward(self, carries, x):
         x = x.to(next(self.parameters()).dtype).permute(0, 3, 1, 2)
-        carries, pyramid = self.memory(carries_nchw(carries),
-                                       self.backbone(x))
+        with span("serve.backbone"):
+            feats = self.backbone(x)
+        with span("serve.memory"):
+            carries, pyramid = self.memory(carries_nchw(carries), feats)
         return carries_nhwc(carries), self.predictor(pyramid)
 
     @staticmethod
@@ -341,15 +347,26 @@ def red_loss(cls_logits, bbox_pred, labels_batch, height, width, priors):
             "cls_loss": cls_loss}
 
 
-def red_eval_decode(cls_logits, bbox_pred, priors, height, width):
+def pixel_scale(height, width, device=None) -> torch.Tensor:
+    """[width, height, width, height] f32, the relative boxes' scale to
+    pixels."""
+    return torch.tensor([width, height, width, height], dtype=torch.float32,
+                        device=device)
+
+
+def red_eval_decode(cls_logits, bbox_pred, priors, height, width, *,
+                    scale=None):
     """→ (N, P, 5 + C) rows [cx, cy, w, h, conf, cls / conf] in pixels for
     postprocess_batch (red.py:340-348); the caller applies conf 0.01, NMS
-    0.45 and the top 15."""
+    0.45 and the top 15. A serving step passes the priors and `scale`
+    (pixel_scale) already on the device: made here from host values, each
+    is a copy that waits for the device."""
     priors_c = torch.as_tensor(priors, device=cls_logits.device)
+    if scale is None:
+        scale = pixel_scale(height, width, cls_logits.device)
     scores = torch.softmax(cls_logits, dim=2)[..., 1:]
     boxes = locations_to_boxes(bbox_pred, priors_c[None])
-    boxes = boxes * torch.tensor([width, height, width, height],
-                                 device=boxes.device)
+    boxes = boxes * scale
     conf = scores.max(-1, keepdim=True).values
     cls_probs = scores / torch.clamp(conf, min=1e-12)
     return torch.cat([boxes, conf, cls_probs], -1)

@@ -21,12 +21,18 @@ Per 10 ms bin, for B parallel streams:
       packed (`make_pipeline_packed`, state (B, H, W, 2K)): B1, B6, the
       sorted, MXU or exact histogram → the update in torch → leaky →
       resize;
+      recurrent (`make_pipeline_recurrent`, state a `RecurrentState`: the
+      folded queue and RED's memory): B1 → B2 as GEN1's, then the resize
+      where the input differs from the sensor; passes the volume on with
+      the state (`RecurrentInput`);
   detect(vol):
       AED forward in the serving dtype → f32 decode → conf 0.3, top-100,
       NMS 0.6 → (dets (B, 100, 6), keep (B, 100)); with quant=(scales,
       table) the forward runs under models.quantize.int8_ctx, its calibrated
       convs through the int8 kernel (bench.py --dtype int8;
-      `calibrate_pipeline` makes the pair from the live encode output)
+      `calibrate_pipeline` makes the pair from the live encode output);
+      recurrent: RED on each stream's memory, which it advances in the
+      state → f32 SSD decode → conf 0.01, top-15, NMS 0.45
 
 Each make_pipeline_* function returns `run_step(state, xytp, n_valid) ->
 (state, (dets, keep))` with the two stages under `run_step.stages`, as
@@ -35,6 +41,8 @@ caller passes device="cpu", which runs the kernels' plain twins.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,11 +57,12 @@ from .encode.taf import INIT_VALUE, leaky_transform
 from .encode.update import (init_state, p64_init_state,
                             taf_stream_step_kernel,
                             taf_stream_step_kernel_p64)
+from .models import red
 from .models.detector import EventDetector, eval_decode
 from .models.postprocess import postprocess_batch
 from .models.quantize import build_weight_table, calibrate_int8, int8_ctx
 from .models.stems import BinsFusionModuleFolded
-from .utils.profiling import span
+from .utils.profiling import count, span
 
 K = 8
 STRIDES = (8, 16, 32)
@@ -98,12 +107,25 @@ def _serving_model(model: EventDetector, device, dtype) -> torch.device:
     return dev
 
 
-def _attach_stages(encode_transform, model: EventDetector, quant=None):
+def _yolox_decode(outs):
+    """The AED's per-level head maps → rows, decoded in f32 (bench.py:170)."""
+    return eval_decode([o.float() for o in outs], STRIDES)
+
+
+_YOLOX_POST = {"max_detections": MAX_DETECTIONS}
+
+
+def _attach_stages(encode_transform, model, quant=None, *, forward=None,
+                   decode=_yolox_decode, post=_YOLOX_POST):
     """run_step with the encode_transform and detect stages; detect runs
-    the forward under int8_ctx(model, *quant) when `quant` is given
-    (bench.py:156-175; the context is `run_step.int8`) and decodes the head
-    outputs in f32 (bench.py:170)."""
+    the forward (`forward(vol)`, by default `model(vol)`) under
+    int8_ctx(model, *quant) when `quant` is given (bench.py:156-175; the
+    context is `run_step.int8`), then `decode` of its outputs and
+    postprocess_batch with the settings `post`. The defaults are the
+    AED's: its head maps decoded in f32 (bench.py:170), conf 0.3, top-100,
+    NMS 0.6."""
     ctx = int8_ctx(model, *(quant or (None, None)))  # no sites: a no-op
+    forward = model if forward is None else forward
 
     def encode(state_f, xytp, n_valid):
         with span("serve.encode", new_step=True):
@@ -113,12 +135,11 @@ def _attach_stages(encode_transform, model: EventDetector, quant=None):
     def detect(vol):
         with span("serve.detect"):
             with span("serve.forward"), ctx:
-                outs = model(vol)
+                outs = forward(vol)
             with span("serve.decode"):
-                decoded = eval_decode([o.float() for o in outs], STRIDES)
+                decoded = decode(outs)
             with span("serve.post"):
-                return postprocess_batch(decoded,
-                                         max_detections=MAX_DETECTIONS)
+                return postprocess_batch(decoded, **post)
 
     def run_step(state_f, xytp, n_valid):
         state_f, vol = encode(state_f, xytp, n_valid)
@@ -138,6 +159,14 @@ def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw,
     quant: None (the serving dtype throughout) or (scales, table) of
     models.quantize (the int8 path); the model keeps its serving dtype."""
     dev = _serving_model(model, device, dtype)
+    return _attach_stages(_folded_encode(sensor_hw, input_hw, scatter, dev),
+                          model, quant)
+
+
+def _folded_encode(sensor_hw, input_hw, scatter: str, dev):
+    """encode_transform(state_f, xytp, n_valid) -> (state_f, vol) on the
+    folded queue: taf_stream_step_kernel (precise=False), then the nearest
+    resize where input_hw differs from sensor_hw."""
     h, w = sensor_hw
     ys, xs = nearest_resize_indices(sensor_hw, input_hw, dev)
 
@@ -149,7 +178,7 @@ def make_pipeline_kernel(model: EventDetector, sensor_hw, input_hw,
             vol = nearest_resize(vol, ys, xs)
         return state_f, vol
 
-    return _attach_stages(encode_transform, model, quant)
+    return encode_transform
 
 
 def make_pipeline_p64(model: EventDetector, sensor_hw,
@@ -176,6 +205,99 @@ def make_pipeline_p64(model: EventDetector, sensor_hw,
                                           precise=False, fold_output=folded)
 
     return _attach_stages(encode_transform, model, quant)
+
+
+class RecurrentState:
+    """The state of B streams on a recurrent serving path: the folded TAF
+    queue `queue` (B, H, W*2K) f32 and the detector's memory `memory`, a
+    tuple of RED's five (h, c) NHWC f32 pairs, or None where every stream
+    starts from zero (the port's convention for a None carry). `reset`
+    starts chosen streams afresh; `fresh` holds the streams reset since
+    the memory last advanced."""
+
+    __slots__ = ("queue", "memory", "fresh")
+
+    def __init__(self, queue: torch.Tensor):
+        self.queue, self.memory, self.fresh = queue, None, set()
+
+    def reset(self, streams) -> None:
+        """Streams `streams` (indices) start afresh: the queue's rows back
+        to -6000 and their memory to zero, the other streams untouched."""
+        rows = sorted(set(int(i) for i in streams))
+        if not rows:
+            return
+        idx = torch.tensor(rows, device=self.queue.device)
+        self.queue.index_fill_(0, idx, INIT_VALUE)
+        if self.memory is not None:
+            with torch.inference_mode():
+                for pair in self.memory:
+                    for t in pair:
+                        t.index_fill_(0, idx, 0.0)
+            self.fresh.update(rows)
+
+
+class RecurrentInput(NamedTuple):
+    """What a recurrent path's encode stage passes its detect stage: the
+    detector's input volume and the state whose memory detect advances."""
+    volume: torch.Tensor
+    state: RecurrentState
+
+
+def make_pipeline_recurrent(model: red.REDDetector, sensor_hw, input_hw,
+                            scatter: str = "pallas", *, device="cuda",
+                            dtype=torch.bfloat16):
+    """RED served over B streams, each keeping its memory on the device
+    from one window to the next. The state is a `RecurrentState`; a bare
+    folded queue (`new_state`) is B fresh streams, whose memory starts at
+    zero. encode_transform advances the queue as make_pipeline_kernel's
+    does (`scatter` "pallas": B1, then B2, precise=False; the nearest
+    resize only where input_hw differs from sensor_hw) and returns (state,
+    RecurrentInput(volume, state)). detect runs RED on the stream state's
+    memory (f32 carries, as the trainer's; the backbone and head in
+    `dtype`, channels_last on the card), stores the new memory in that
+    state, so that the next step carries it whichever of run_step or the
+    two stages the caller runs, and decodes the SSD outputs in f32
+    (red_eval_decode) for postprocess_batch at conf 0.01, NMS 0.45 and 15
+    detections (the red eval step's settings). It counts the stream-windows
+    whose memory came from the previous window (`memory_carried`) and
+    those that started from zero (`memory_fresh`) in the `serve.forward`
+    span. No host sync beyond the NMS rounds'."""
+    if not isinstance(model, red.REDDetector):
+        raise ValueError(f"make_pipeline_recurrent serves a REDDetector, got "
+                         f"{type(model).__name__}")
+    dev = _serving_model(model, device, dtype)
+    H, W = input_hw
+    priors = torch.as_tensor(red.build_priors(H, W), device=dev)
+    scale = red.pixel_scale(H, W, dev)
+    encode_queue = _folded_encode(sensor_hw, input_hw, scatter, dev)
+
+    def encode_transform(state, xytp, n_valid):
+        if isinstance(state, torch.Tensor):
+            state = RecurrentState(state)
+        state.queue, vol = encode_queue(state.queue, xytp, n_valid)
+        return state, RecurrentInput(vol, state)
+
+    def forward(inp: RecurrentInput):
+        state, n = inp.state, inp.volume.shape[0]
+        memory, fresh = state.memory, len(state.fresh)
+        if memory is None:
+            memory, fresh = model.init_carries(n, H, W, device=dev), n
+        count("memory_fresh", fresh)
+        count("memory_carried", n - fresh)
+        state.memory, outs = model(memory, inp.volume)
+        state.fresh.clear()
+        return outs
+
+    def decode(outs):
+        cls_logits, bbox_pred = outs
+        return red.red_eval_decode(cls_logits.float(), bbox_pred.float(),
+                                   priors, H, W, scale=scale)
+
+    return _attach_stages(encode_transform, model, forward=forward,
+                          decode=decode, post={
+                              "conf_threshold": red.CONFIDENCE_THRESHOLD,
+                              "nms_threshold": red.NMS_THRESHOLD,
+                              "max_detections": red.TOPK})
 
 
 UNPACKED_SCATTERS = ("mxu", "sorted", "xla")

@@ -1136,3 +1136,93 @@ def test_export_of_a_served_model_calls_the_epilogue_operator(cuda,
     assert epilogue.bn_act.launches == before + 2 * 62
     assert torch.equal(live_keep, got_keep)
     assert (live_dets - got_dets).abs().max().item() <= 1e-5
+
+
+# RED served with each stream's memory carried (make_pipeline_recurrent)
+
+def test_red_serving_on_card_matches_reference_and_records_memory(cuda):
+    """RED at the red_gen4 cell's shapes (512x640, 65536 event slots, bf16
+    model, f32 memory) with B = 2 over 8 windows against the benchmark's
+    plain reference in f32 on the program's own volumes: each level's
+    memory and the head outputs within the cell check's memory_gap and
+    head_gap limits every window; under profiling.recording() `serve.memory` and
+    `serve.backbone` carry device ms inside `serve.forward`, the counters
+    read 2 fresh stream-windows then 14 carried, and B1 and B2 launch
+    every step; then torch.cuda's sync debug mode warns once for each
+    counted host sync (the NMS rounds') and for nothing else."""
+    import json
+
+    from evd_bench import weights
+    from evd_bench.reference import red as ref
+    from frlw_evd_tpu_torch.encode import scatter_cnt_tsum
+    from frlw_evd_tpu_torch.models.detector import (RED_IN_CHANNELS,
+                                                    RED_STRIDES)
+    from frlw_evd_tpu_torch.utils import profiling
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cell = json.load(open(os.path.join(
+        root, "evd_bench", "cells", "red_gen4_serve_b128.json")))
+    limits = cell["check"]["limits"]
+    hw, B, E, steps = (512, 640), 2, 65536, 8
+    m = {"family": "red", "num_classes": 7, "input_channels": 16}
+    params = weights.make_params(ref.param_spec(m), 0, cuda)
+    model = build_detector(7, family="red", input_channels=16,
+                           in_channels=RED_IN_CHANNELS, strides=RED_STRIDES)
+    model.load_state_dict(params, strict=True)
+    run = pipeline.make_pipeline_recurrent(model, hw, hw, device=cuda)
+    net = ref.Net(params, m)
+    heads = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: heads.append(out[1]))
+    ev, nv = pipeline.synth_events_skewed(np.random.default_rng(3), steps,
+                                          B, E, hw)
+    ev, nv = torch.from_numpy(ev).to(cuda), torch.from_numpy(nv).to(cuda)
+    b1, b2 = scatter_cnt_tsum.launches, taf_update_leaky.launches
+    state, memory = pipeline.new_state(B, hw, device=cuda), None
+    profiling.clear_spans()
+    try:
+        with profiling.recording():
+            for i in range(steps):
+                state, inp = run.stages["encode_transform"](state, ev[i],
+                                                            nv[i])
+                run.stages["detect"](inp)
+                with torch.no_grad():
+                    memory, outs = net(memory, inp.volume.float())
+                for level, (mine, ref_pair) in enumerate(
+                        zip(state.memory, memory)):
+                    got = torch.cat([t.reshape(-1) for t in mine])
+                    want = torch.cat([t.reshape(-1) for t in ref_pair])
+                    assert _rel(got, want) <= limits["memory_gap"], (i, level)
+                err = sum(float((a.double() - b.double()).norm() ** 2)
+                          for a, b in zip(heads[-1], outs))
+                ref_sq = sum(float(b.double().norm() ** 2) for b in outs)
+                assert (err / ref_sq) ** 0.5 <= limits["head_gap"], i
+        s = profiling.spans_summary()
+    finally:
+        hook.remove()
+    assert scatter_cnt_tsum.launches - b1 == steps
+    assert taf_update_leaky.launches - b2 == steps
+    assert s["counts"]["memory_fresh"] == B
+    assert s["counts"]["memory_carried"] == B * (steps - 1)
+    spans = s["spans"]
+    for name in ("serve.backbone", "serve.memory", "serve.forward"):
+        assert spans[name]["device_ms"] > 0, name
+    assert spans["serve.memory"]["device_ms"] + spans["serve.backbone"][
+        "device_ms"] <= spans["serve.forward"]["device_ms"]
+
+    # two more steps: the NMS rounds' are the only host syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")     # its first call warns once
+    profiling.clear_spans()
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                profiling.recording():
+            warnings.simplefilter("always")
+            for i in range(2):
+                state, _ = run(state, ev[i], nv[i])
+            warned = [w for w in caught if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = profiling.spans_summary()["counts"]
+    assert counts["host_syncs"] == len(warned) >= 2
+    assert counts["memory_carried"] == 2 * B
