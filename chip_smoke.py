@@ -274,11 +274,16 @@ Phases (any failure exits non-zero; no phase catches and continues):
      bf16-rounded f32 input, wall seconds;
  47. the conv blocks' fused epilogue (`models/epilogue.bn_act`,
      csrc/bn_act.cu) at every site shape of the 1 Mpx and the GEN1 AED at
-     B = 128, each with its residual where the model has one: within one
+     B = 128, each with its residual where the model has one, and at
+     every site of RED at 512x640 in its own form (relu; linear; linear
+     with the SE-gated shortcut at the `down` sites), L1.c1's relu form
+     (128 x 64 x 256 x 320) and L1.down's linear and gated forms
+     (128 x 64 x 128 x 160) among them: within one
      bf16 ulp of its twin `bn_act_plain` (plus 2^-20 of the terms'
      magnitude), times against its byte bound and against the separate
-     batch_norm, activation and add passes it replaced (library_ms), the
-     sum over each model's 62 sites, and the host's microseconds a site
+     batch_norm, activation, gate and add passes it replaced (library_ms),
+     the sum over each model's sites (62 an AED's, 13 RED's), and the
+     host's microseconds a site
      on the served route (blocks.conv_epilogue), through the operator
      frlw_evd_torch::bn_act that a trace calls, through the checked
      wrapper and through the separate passes.
@@ -286,9 +291,10 @@ Every phase that drives a path sets all launch counts to 0 just before it
 and reads them just after, and each phase prints its wall seconds. Every
 serving path launches the fused epilogue once a site a forward (62 an AED
 window, 74 the yolox model's, 50 with the merged head, 62 a call of an
-exported program); the training steps launch none, and the Trainer's bf16
-validation launches it (those phases' "no kernel launched" leaves it
-out and prints its count). It
+exported program, 13 RED's); the training steps launch none, and the
+Trainer's bf16 validation launches it (those phases' "no kernel launched"
+leaves it out and prints its count; red's, phase 36, a positive multiple
+of RED's 13 sites). It
 prints one {"kernels": [...]} JSON line, one entry per kernel and B1 once
 per cell order, each entry's launches and times from one path (every path
 that launches it under launches_by_path), and the nvidia-smi line before
@@ -329,8 +335,8 @@ MAIN_WINDOWS = 4
 # conv epilogues (blocks.conv_epilogue) an eval forward of each served model
 # runs, each one launch of the fused kernel in bf16 on the card: the AED's
 # 62, the yolox model's 74, 50 with the merged head (its towers run their
-# own BatchNorm)
-EPILOGUE_SITES = {"aed": 62, "yolox": 74, "merged": 50}
+# own BatchNorm), RED's 13 (its SE-ResNet's stem and 4 a block)
+EPILOGUE_SITES = {"aed": 62, "yolox": 74, "merged": 50, "red": 13}
 # HBM rate, f32 CUDA-core FMA rate and dense bf16 tensor-core rate (FLOP/s)
 # of the part nvidia-smi names (NVIDIA data sheets); a kernel's bound is the
 # largest of its bytes over the HBM rate and each type of its operations
@@ -3205,6 +3211,12 @@ def train_family(train, exp_type, data_path, labels, bins, counters, dev,
                          f"{launches}")
     log(f"{exp_type}: the bf16 validation's fused epilogue launched "
         f"{launches['bn_act']} times")
+    red_sites = EPILOGUE_SITES["red"]
+    if exp_type == "red" and (launches["bn_act"] < red_sites
+                              or launches["bn_act"] % red_sites):
+        raise SystemExit(f"red: the bf16 validation launched the fused "
+                         f"epilogue {launches['bn_act']} times, not "
+                         f"{red_sites} a forward")
     hist = trainer.history
     if len(hist) != 1 or hist[0]["steps"] < 3 or "val" not in hist[0]:
         raise SystemExit(f"{exp_type}: Trainer.train ran {hist}")
@@ -4617,15 +4629,132 @@ def epilogue_host_us(dev):
     return {k: sorted(v)[1] for k, v in us.items()}
 
 
+# RED's forms that phase 47 names (act, gated, C, H, W): L1.c1's relu and
+# L1.down's linear and SE-gated forms, the largest of each at B = 128
+RED_EPILOGUE_FORMS = {"L1.c1 relu": ("relu", False, 64, 256, 320),
+                      "L1.down linear": ("linear", False, 64, 128, 160),
+                      "L1.down gated": ("linear", True, 64, 128, 160)}
+
+
+def red_epilogue_sites(pipeline, dev):
+    """Counter({(act, gated, C, H, W): sites}) of RED's conv epilogues in one
+    bf16 eval forward at 512x640 (one image, zero memory), from the fused
+    route's calls of epilogue.apply."""
+    from frlw_evd_tpu_torch.models import build_detector, epilogue
+    from frlw_evd_tpu_torch.models.detector import (RED_IN_CHANNELS,
+                                                    RED_STRIDES)
+
+    model = build_detector(7, family="red", input_channels=16,
+                           in_channels=RED_IN_CHANNELS, strides=RED_STRIDES)
+    pipeline._serving_model(model, dev, torch.bfloat16)
+    sites, apply = Counter(), epilogue.apply
+
+    def record(*args):
+        sites[(args[6], args[8] is not None, *args[0].shape[1:])] += 1
+        return apply(*args)
+    epilogue.apply = record
+    try:
+        with torch.inference_mode():
+            model(model.init_carries(1, *GEN4_SENSOR, device=dev),
+                  torch.zeros(1, *GEN4_SENSOR, 16, device=dev))
+    finally:
+        epilogue.apply = apply
+    return sites
+
+
+def epilogue_case(dev, g, rate, eps, C, H, W, act="silu", res=False,
+                  gated=False, twin=False):
+    """One form of the fused epilogue at B x C x H x W, bf16 parameters, a
+    residual where `res`, gated per sample and channel where `gated`: one
+    launch against its twin, within one bf16 ulp (chunked), then its ms,
+    the separate passes' (library_ms), the twin's where `twin` (plain_ms)
+    and its byte bound (x read, the residual read where there is one, the
+    output written; the gate's B x C bf16 besides). Returns (row, the
+    largest excess over one ulp, the largest difference)."""
+    import torch.nn.functional as F
+
+    from frlw_evd_tpu_torch.models import epilogue
+    from frlw_evd_tpu_torch.models.blocks import get_activation
+
+    def draw():
+        return torch.randn(B, H, W, C, device=dev, generator=g).mul_(
+            3).to(torch.bfloat16).permute(0, 3, 1, 2)
+    x = draw()
+    r = draw() if res else None
+    params = [torch.randn(C, device=dev, generator=g),
+              torch.rand(C, device=dev, generator=g) + 0.5,
+              torch.rand(C, device=dev, generator=g) + 1.0,
+              torch.randn(C, device=dev, generator=g) * 0.5]
+    params = [t.to(torch.bfloat16) for t in params]
+    gate = (torch.rand(B, C, 1, 1, device=dev, generator=g).to(
+        torch.bfloat16) if gated else None)
+    args = (x, *params, eps, act, r, gate)
+    form = f"{(B, C, H, W)} {act} residual {res} gated {gated}"
+    before = epilogue.bn_act.launches
+    got = epilogue.bn_act(*args)
+    if epilogue.bn_act.launches != before + 1 or got.stride() != x.stride():
+        raise SystemExit(f"bn_act {form}: launches or layout")
+    worst_ulps, worst_abs = -1.0, 0.0
+    for n0 in range(0, B, EPILOGUE_CHUNK):
+        part = slice(n0, n0 + EPILOGUE_CHUNK)
+        rp = None if r is None else r[part]
+        gp = None if gate is None else gate[part]
+        want = epilogue.bn_act_plain(x[part], *params, eps, act, rp, gp)
+        over, diff = bf16_ulps_over(got[part], want, x[part], params, eps,
+                                    rp)
+        worst_ulps, worst_abs = max(worst_ulps, over), max(worst_abs, diff)
+        if over > 0:
+            raise SystemExit(f"bn_act {form}: {over} beyond one bf16 ulp of "
+                             f"its twin")
+    del got, want
+
+    def separate():
+        y = get_activation(act)(F.batch_norm(x, *params, False, 0.0, eps))
+        if gate is not None:
+            return y + gate * r
+        return y if r is None else y + r
+    row = {"shape": [B, C, H, W], "act": act, "residual": res,
+           "gated": gated, "ms": time_ms(lambda: epilogue.bn_act(*args)),
+           "library_ms": time_ms(separate),
+           "bound_ms": ((3 if res else 2) * x.numel() * 2
+                        + (B * C * 2 if gated else 0)) / rate * 1e3}
+    if twin:
+        row["plain_ms"] = time_ms(lambda: epilogue.bn_act_plain(*args), n=3)
+    return row, worst_ulps, worst_abs
+
+
+def check_red_epilogue(pipeline, rate, dev, g, eps):
+    """Phase 47's RED part: each of RED's site forms at B = 128 through
+    epilogue_case. Returns (rows by form, RED's sums over its 13 sites, the
+    largest excess over one ulp, the largest difference)."""
+    sites = red_epilogue_sites(pipeline, dev)
+    if sum(sites.values()) != EPILOGUE_SITES["red"]:
+        raise SystemExit(f"RED: {sum(sites.values())} epilogue sites, not "
+                         f"{EPILOGUE_SITES['red']}")
+    missing = set(RED_EPILOGUE_FORMS.values()) - set(sites)
+    if missing:
+        raise SystemExit(f"RED's site forms {sorted(sites)} lack {missing}")
+    rows, worst_ulps, worst_abs = {}, -1.0, 0.0
+    for act, gated, C, H, W in sorted(sites):
+        row, over, diff = epilogue_case(dev, g, rate, eps, C, H, W, act,
+                                        res=gated, gated=gated)
+        worst_ulps, worst_abs = max(worst_ulps, over), max(worst_abs, diff)
+        row["sites"] = sites[(act, gated, C, H, W)]
+        rows[(act, gated, C, H, W)] = row
+        torch.cuda.empty_cache()
+    step = {k: sum(row[k] * row["sites"] for row in rows.values())
+            for k in ("ms", "library_ms", "bound_ms")}
+    return rows, step, worst_ulps, worst_abs
+
+
 def check_epilogue_kernel(pipeline, rate, card_name):
     """Phase 47 (see the module's docstring). Returns the kernel's row:
     its ms, the twin's and the separate passes' at the 1 Mpx stem site
-    without a residual (ms_by_set: with one too), every site shape's under
-    by_site, each model's sum over its sites under step_ms, and the host
-    microseconds a site under host_us."""
-    import torch.nn.functional as F
-
-    from frlw_evd_tpu_torch.models import build_detector, epilogue
+    without a residual (ms_by_set: with one too, and RED's named forms),
+    every site shape's under by_site (RED's under red_by_site), each
+    model's sum over its sites under step_ms, and the host microseconds a
+    site under host_us."""
+    from frlw_evd_tpu_torch.models import build_detector
 
     dev = torch.device("cuda")
     gen4 = build_detector(7, stem="bfm_folded",
@@ -4647,53 +4776,21 @@ def check_epilogue_kernel(pipeline, rate, card_name):
     g = torch.Generator(device=dev).manual_seed(0)
     eps, by_site, worst_ulps, worst_abs = 1e-5, {}, -1.0, 0.0
     for C, H, W, res in cases:
-        def draw():
-            return torch.randn(B, H, W, C, device=dev, generator=g).mul_(
-                3).to(torch.bfloat16).permute(0, 3, 1, 2)
-        x = draw()
-        r = draw() if res else None
-        params = [torch.randn(C, device=dev, generator=g),
-                  torch.rand(C, device=dev, generator=g) + 0.5,
-                  torch.rand(C, device=dev, generator=g) + 1.0,
-                  torch.randn(C, device=dev, generator=g) * 0.5]
-        params = [t.to(torch.bfloat16) for t in params]
-        before = epilogue.bn_act.launches
-        got = epilogue.bn_act(x, *params, eps, "silu", r)
-        if (epilogue.bn_act.launches != before + 1
-                or got.stride() != x.stride()):
-            raise SystemExit(f"bn_act {(C, H, W)}: launches or layout")
-        for n0 in range(0, B, EPILOGUE_CHUNK):
-            part = slice(n0, n0 + EPILOGUE_CHUNK)
-            rp = None if r is None else r[part]
-            want = epilogue.bn_act_plain(x[part], *params, eps, "silu", rp)
-            over, diff = bf16_ulps_over(got[part], want, x[part], params,
-                                        eps, rp)
-            worst_ulps, worst_abs = max(worst_ulps, over), max(worst_abs,
-                                                               diff)
-            if over > 0:
-                raise SystemExit(f"bn_act {(B, C, H, W)} residual {res}: "
-                                 f"{over} beyond one bf16 ulp of its twin")
-        del got, want
-
-        def separate():
-            y = F.silu(F.batch_norm(x, *params, False, 0.0, eps))
-            return y if r is None else y + r
-        by_site[(C, H, W, res)] = {
-            "shape": [B, C, H, W], "residual": res,
-            "sites": {k: c[(C, H, W, res)] for k, c in shapes.items()
-                      if (C, H, W, res) in c},
-            "ms": time_ms(lambda: epilogue.bn_act(x, *params, eps, "silu",
-                                                  r)),
-            "plain_ms": time_ms(lambda: epilogue.bn_act_plain(
-                x, *params, eps, "silu", r), n=3),
-            "library_ms": time_ms(separate),
-            "bound_ms": (3 if res else 2) * x.numel() * 2 / rate * 1e3}
-        del x, r
+        row, over, diff = epilogue_case(dev, g, rate, eps, C, H, W,
+                                        res=res, twin=True)
+        worst_ulps, worst_abs = max(worst_ulps, over), max(worst_abs, diff)
+        row["sites"] = {k: c[(C, H, W, res)] for k, c in shapes.items()
+                        if (C, H, W, res) in c}
+        by_site[(C, H, W, res)] = row
         torch.cuda.empty_cache()
     step_ms = {}
     for label, counts in shapes.items():
         step_ms[label] = {k: sum(by_site[s][k] * n for s, n in counts.items())
                           for k in ("ms", "library_ms", "bound_ms")}
+    red_rows, step_ms["red"], red_ulps, red_abs = check_red_epilogue(
+        pipeline, rate, dev, g, eps)
+    worst_ulps, worst_abs = max(worst_ulps, red_ulps), max(worst_abs,
+                                                           red_abs)
     host_us = epilogue_host_us(dev)
     stem, stem_res = by_site[(*EPILOGUE_STEM, False)], by_site[
         (*EPILOGUE_STEM, True)]
@@ -4703,8 +4800,19 @@ def check_epilogue_kernel(pipeline, rate, card_name):
             f"{row['plain_ms']:.4f}, the separate passes "
             f"{row['library_ms']:.4f}, byte bound {row['bound_ms']:.4f} "
             f"({row['bound_ms'] / row['ms']:.1%} of it)")
+    for (act, gated, C, H, W), row in red_rows.items():
+        named = [k for k, v in RED_EPILOGUE_FORMS.items()
+                 if v == (act, gated, C, H, W)]
+        log(f"bn_act RED B = {B}, C {C}, {H}x{W}, {act}"
+            f"{', gated shortcut' if gated else ''} ({row['sites']} sites"
+            f"{'; ' + ', '.join(named) if named else ''}): "
+            f"{row['ms']:.4f} ms, the separate passes "
+            f"{row['library_ms']:.4f}, byte bound {row['bound_ms']:.4f} "
+            f"({row['bound_ms'] / row['ms']:.1%} of it)")
     for label, row in step_ms.items():
-        log(f"bn_act over the {label} AED's {EPILOGUE_SITES['aed']} sites at "
+        model = "RED" if label == "red" else f"{label} AED"
+        n = EPILOGUE_SITES["red" if label == "red" else "aed"]
+        log(f"bn_act over the {model}'s {n} sites at "
             f"B = {B}: {row['ms']:.3f} ms, the separate passes "
             f"{row['library_ms']:.3f}, byte bound {row['bound_ms']:.3f}")
     log(f"bn_act host us a site on {card_name}: " + ", ".join(
@@ -4716,10 +4824,15 @@ def check_epilogue_kernel(pipeline, rate, card_name):
                 plain_ms=stem["plain_ms"], library_ms=stem["library_ms"],
                 bound_ms=stem["bound_ms"], bound_by="bytes",
                 ms_by_set={"stem": stem["ms"], "stem_residual":
-                           stem_res["ms"]},
+                           stem_res["ms"],
+                           **{k: red_rows[v]["ms"]
+                              for k, v in RED_EPILOGUE_FORMS.items()}},
                 library_ms_by_set={"stem": stem["library_ms"],
-                                   "stem_residual": stem_res["library_ms"]},
-                by_site=list(by_site.values()), step_ms=step_ms,
+                                   "stem_residual": stem_res["library_ms"],
+                                   **{k: red_rows[v]["library_ms"]
+                                      for k, v in RED_EPILOGUE_FORMS.items()}},
+                by_site=list(by_site.values()),
+                red_by_site=list(red_rows.values()), step_ms=step_ms,
                 host_us=host_us)
 
 

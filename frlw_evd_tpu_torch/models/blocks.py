@@ -23,6 +23,7 @@ from . import epilogue
 
 _ACTIVATIONS = {"silu": F.silu, "relu": F.relu,
                 "lrelu": partial(F.leaky_relu, negative_slope=0.1),
+                "linear": lambda x: x,
                 # jax.nn.gelu's default
                 "gelu": partial(F.gelu, approximate="tanh")}
 
@@ -307,7 +308,8 @@ class BaseConv(nn.Module):
                              residual)
 
 
-def _fuses(y, bn, act_name: str, drop, residual, traced: bool) -> bool:
+def _fuses(y, bn, act_name: str, drop, residual, gate,
+           traced: bool) -> bool:
     """Whether the epilogue of conv output y runs as one pass: an eval
     forward that records no gradient, y on the kernel's device
     (`epilogue.KERNEL_DEVICE`), the BatchNorm with running statistics, any
@@ -316,15 +318,18 @@ def _fuses(y, bn, act_name: str, drop, residual, traced: bool) -> bool:
             and (drop is None or not drop.training)
             and epilogue.refusal(y, bn.running_mean, bn.running_var,
                                  bn.weight, bn.bias, act_name, residual,
-                                 traced=traced) is None
+                                 gate, traced=traced) is None
             and not (torch.is_grad_enabled() and (
                 y.requires_grad or bn.weight.requires_grad
-                or (residual is not None and residual.requires_grad))))
+                or (residual is not None and residual.requires_grad)
+                or (gate is not None and gate.requires_grad))))
 
 
-def conv_epilogue(y, bn, act_name: str, drop=None, residual=None):
+def conv_epilogue(y, bn, act_name: str, drop=None, residual=None,
+                  gate=None):
     """BatchNorm `bn` → dropout `drop` (or None) → activation `act_name`
-    (→ + residual) of a conv block's output y.
+    (→ + residual, times `gate` (N, C) or (N, C, 1, 1) where given: RED's
+    SE gate on its shortcut) of a conv block's output y.
 
     At eval, where `_fuses` finds that it applies, one pass of the kernel
     on the card (`epilogue.apply`; while torch.export traces, the operator
@@ -333,12 +338,12 @@ def conv_epilogue(y, bn, act_name: str, drop=None, residual=None):
     Training counts neither, nor does a trace."""
     if not bn.training:
         traced = torch.compiler.is_compiling()
-        fused = _fuses(y, bn, act_name, drop, residual, traced)
+        fused = _fuses(y, bn, act_name, drop, residual, gate, traced)
         if not traced:
             profiling.count("epilogue_fused" if fused else "epilogue_plain")
         if fused:
             args = (y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                    bn.eps, act_name, residual)
+                    bn.eps, act_name, residual, gate)
             if traced:
                 return torch.ops.frlw_evd_torch.bn_act(*args)
             return epilogue.apply(*args)
@@ -346,6 +351,8 @@ def conv_epilogue(y, bn, act_name: str, drop=None, residual=None):
     if drop is not None:
         y = drop(y)
     y = get_activation(act_name)(y)
+    if gate is not None:
+        return y + epilogue.gate_map(gate) * residual
     return y if residual is None else y + residual
 
 

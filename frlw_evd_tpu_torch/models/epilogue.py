@@ -1,13 +1,16 @@
 """The conv blocks' eval epilogue: BatchNorm, activation and residual add
 in one pass over a conv's bf16 channels_last output (`csrc/bn_act.cu`).
 
-    bn_act(x, mean, var, weight, bias, eps, act, residual)
-      = bf16(act((x - mean) * rsqrt(var + eps) * weight + bias) (+ residual))
+    bn_act(x, mean, var, weight, bias, eps, act, residual, gate)
+      = bf16(act((x - mean) * rsqrt(var + eps) * weight + bias)
+             (+ [gate[n, c] *] residual))
 
-every step in f32 and one rounding to bf16. `blocks.BaseConv` and the
-folded 1 Mpx stem's conv take it at eval when their output shows that it
+every step in f32 and one rounding to bf16. `blocks.BaseConv`, the folded
+1 Mpx stem's conv and RED's SE-ResNet sites (`red.SEBottleneck`, whose
+`down` site adds the SE-gated shortcut, gate (N, C), with the identity
+activation "linear") take it at eval when their output shows that it
 applies (`blocks.conv_epilogue`); everything else keeps the separate
-BatchNorm, activation and add.
+BatchNorm, activation, gate and add.
 
 Why: served in bf16 on the card, cuDNN runs each conv, and torch ran the
 eval BatchNorm, the activation and the ResLayers' add as three more
@@ -37,7 +40,7 @@ from ..kernels import _build
 
 # the kernel's activations (csrc/bn_act.cu's template cases), by the names
 # blocks.get_activation takes
-_ACT_CODE = {"silu": 0, "relu": 1, "lrelu": 2}
+_ACT_CODE = {"silu": 0, "relu": 1, "lrelu": 2, "linear": 3}
 MAX_CHANNELS = 2048         # 256 groups of 8: one group a thread of a block
 THREADS = 256
 BLOCKS_PER_SM = 4
@@ -50,26 +53,36 @@ _sm_count: dict[int, int] = {}
 
 
 def bn_act_plain(x, mean, var, weight, bias, eps: float, act: str,
-                 residual=None):
+                 residual=None, gate=None):
     """The twin: f32 batch_norm on the f32 parameters, the activation, the
-    residual added in f32, one rounding to x's dtype."""
+    residual (times the gate) added in f32, one rounding to x's dtype."""
     from .blocks import get_activation      # blocks imports this module
 
     y = F.batch_norm(x.float(), mean.float(), var.float(), weight.float(),
                      bias.float(), False, 0.0, eps)
     y = get_activation(act)(y)
-    if residual is not None:
+    if gate is not None:
+        y = y + gate_map(gate).float() * residual.float()
+    elif residual is not None:
         y = y + residual.float()
     return y.to(x.dtype)
 
 
-def refusal(x, mean, var, weight, bias, act: str, residual=None, *,
-            traced: bool = False):
+def gate_map(gate):
+    """A gate of (N, C) or (N, C, 1, 1) as (N, C, 1, 1), to broadcast over
+    the residual's pixels."""
+    return gate.reshape(*gate.shape[:2], 1, 1)
+
+
+def refusal(x, mean, var, weight, bias, act: str, residual=None,
+            gate=None, *, traced: bool = False):
     """Why the kernel does not take these operands, or None where it does:
     x (N, C, H, W) bf16 with C % 8 == 0 and C <= MAX_CHANNELS,
-    channels_last-contiguous and 16-byte aligned; the residual None or laid out as x; mean and var of one dtype,
-    weight and bias of one, each (C,) bf16 or f32 on x's device; act one
-    of the kernel's. `traced`: the strides and offsets are a tracer's guess
+    channels_last-contiguous and 16-byte aligned; the residual None or laid
+    out as x; the gate None, or (N, C) or (N, C, 1, 1) bf16 on x's device,
+    contiguous and 16-byte aligned, with a residual; mean and var of one
+    dtype, weight and bias of one, each (C,) bf16 or f32 on x's device; act
+    one of the kernel's. `traced`: the strides and offsets are a tracer's guess
     (torch.export's fake convs on CUDA give NCHW where cuDNN writes
     channels_last) and are not asked for; the operator lays its inputs out at
     run time."""
@@ -90,6 +103,15 @@ def refusal(x, mean, var, weight, bias, act: str, residual=None, *,
             or not traced and (residual.stride() != x.stride()
                                or residual.data_ptr() % 16)):
         return "the residual must be laid out as x"
+    if gate is not None and (
+            residual is None or gate.dtype != torch.bfloat16
+            or gate.shape not in ((x.shape[0], C), (x.shape[0], C, 1, 1))
+            or gate.device != x.device
+            or not traced and (not gate.is_contiguous()
+                               or gate.data_ptr() % 16)):
+        return (f"the gate must be ({x.shape[0]}, {C}) or "
+                f"({x.shape[0]}, {C}, 1, 1) bf16 on {x.device}, "
+                f"contiguous and 16-byte aligned, with a residual")
     for a, b in ((mean, var), (weight, bias)):
         if (a is None or b is None or a.dtype not in _PARAM_DTYPES
                 or b.dtype != a.dtype
@@ -115,15 +137,18 @@ def _grid(device, n_pix: int, C: int) -> int:
 
 
 def bn_act(x, mean, var, weight, bias, eps: float, act: str,
-           residual=None):
-    """BatchNorm (eval), `act` and the optional residual in one pass.
+           residual=None, gate=None):
+    """BatchNorm (eval), `act` and the optional residual, optionally
+    gated, in one pass.
 
     Args:
       x: (N, C, H, W) bf16, channels_last-contiguous, C % 8 == 0.
       mean, var, weight, bias: (C,) bf16 or f32 (mean and var of one
         dtype, weight and bias of one dtype).
-      act: "silu", "relu" or "lrelu" (slope 0.1).
+      act: "silu", "relu", "lrelu" (slope 0.1) or "linear" (the identity).
       residual: None, or a tensor like x.
+      gate: None, or (N, C) or (N, C, 1, 1) bf16, contiguous: the residual
+        of sample n, channel c is added times gate[n, c].
     Returns (N, C, H, W) bf16 laid out as x.
 
     CPU tensors run `bn_act_plain`; CUDA tensors launch csrc/bn_act.cu
@@ -132,23 +157,25 @@ def bn_act(x, mean, var, weight, bias, eps: float, act: str,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bn_act: unsupported device {x.device}")
     if x.device.type == "cuda":
-        why = refusal(x, mean, var, weight, bias, act, residual)
+        why = refusal(x, mean, var, weight, bias, act, residual, gate)
         if why is not None:
             raise ValueError(f"bn_act: {why}")
-    return apply(x, mean, var, weight, bias, eps, act, residual)
+    return apply(x, mean, var, weight, bias, eps, act, residual, gate)
 
 
-def apply(x, mean, var, weight, bias, eps: float, act: str, residual=None):
+def apply(x, mean, var, weight, bias, eps: float, act: str, residual=None,
+          gate=None):
     """`bn_act` on operands that `refusal` passed, unchecked: the twin on
     CPU tensors, one launch of the kernel on CUDA tensors."""
     if x.device.type == "cpu":
-        return bn_act_plain(x, mean, var, weight, bias, eps, act, residual)
+        return bn_act_plain(x, mean, var, weight, bias, eps, act, residual,
+                            gate)
     N, C, H, W = x.shape
     out = torch.empty_like(x)
     flags = ((mean.dtype == torch.float32)
              | (weight.dtype == torch.float32) << 1)
     _build.launch("bn_act", "bn_act",
-                  (x, residual, mean, var, weight, bias, out),
+                  (x, residual, gate, mean, var, weight, bias, out),
                   (N, H * W, C, _ACT_CODE[act], flags, _f32_bits(eps),
                    _grid(x.device, N * H * W, C)),
                   x.device)

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..parallel import dist
 from ..utils.profiling import span
-from .blocks import BatchNorm2d, PromotingConv2d
+from .blocks import BatchNorm2d, PromotingConv2d, conv_epilogue
 from .memory import ConvLSTMCell, carries_nchw, carries_nhwc
 
 CENTER_VARIANCE = 0.1
@@ -45,7 +45,12 @@ HIDDEN = 256
 class SEBottleneck(nn.Module):
     """3 x conv-bn(-relu) + SE gate + a 1x1 downsample residual
     (red.py:42-73); submodules `{c1,c2,c3,down}_{conv,bn}`, `conv_down`,
-    `conv_up`."""
+    `conv_up`.
+
+    Each conv's BatchNorm, ReLU (c1, c2) and the block's end,
+    bn(down(x)) + se * c3_out, run through `blocks.conv_epilogue`: at eval
+    in bf16 on the card one pass each (the `down` site adds the SE-gated
+    c3 output as its gated residual), elsewhere the separate passes."""
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1):
         super().__init__()
@@ -59,16 +64,18 @@ class SEBottleneck(nn.Module):
         self.conv_down = nn.Conv2d(planes, planes // 4, 1, bias=False)
         self.conv_up = nn.Conv2d(planes // 4, planes, 1, bias=False)
 
-    def _conv_bn(self, name, x):
-        return getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x))
+    def _site(self, name, x, act, residual=None, gate=None):
+        return conv_epilogue(getattr(self, f"{name}_conv")(x),
+                             getattr(self, f"{name}_bn"), act,
+                             residual=residual, gate=gate)
 
     def forward(self, x):
-        out = F.relu(self._conv_bn("c1", x))
-        out = F.relu(self._conv_bn("c2", out))
-        out = self._conv_bn("c3", out)
+        out = self._site("c1", x, "relu")
+        out = self._site("c2", out, "relu")
+        out = self._site("c3", out, "linear")
         se = out.mean(dim=(2, 3), keepdim=True)
         se = torch.sigmoid(self.conv_up(F.relu(self.conv_down(se))))
-        return se * out + self._conv_bn("down", x)
+        return self._site("down", x, "linear", residual=out, gate=se)
 
 
 class SEResNet(nn.Module):
@@ -84,7 +91,7 @@ class SEResNet(nn.Module):
         self.layer3 = SEBottleneck(64, 128, 2)
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = conv_epilogue(self.conv1(x), self.bn1, "relu")
         return self.layer3(self.layer2(self.layer1(x)))
 
 

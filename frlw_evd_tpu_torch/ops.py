@@ -12,9 +12,10 @@ and the twin's conv does). The package imports this module, so importing
 frlw_evd_tpu_torch registers the operator before a `.pt2` that calls it
 is loaded.
 
-frlw_evd_torch::bn_act(x, mean, var, weight, bias, eps, act, residual) is
-`models/epilogue.bn_act`, the conv blocks' eval BatchNorm, activation and
-residual add in one pass: on CPU tensors its plain twin, on CUDA tensors
+frlw_evd_torch::bn_act(x, mean, var, weight, bias, eps, act, residual,
+gate=None) is `models/epilogue.bn_act`, the conv blocks' eval BatchNorm,
+activation and residual add (times the (N, C) gate, where given) in one
+pass: on CPU tensors its plain twin, on CUDA tensors
 csrc/bn_act.cu. `blocks.conv_epilogue` calls it while torch.export traces
 (eagerly it calls `epilogue.apply`, whose host cost a site is 12-13 us
 below the operator's dispatch: chip_smoke.py phase 47). A trace's strides
@@ -66,15 +67,17 @@ def _(x, wq, scale, inv, bias, stride):
 @torch.library.custom_op("frlw_evd_torch::bn_act", mutates_args=())
 def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
            weight: torch.Tensor, bias: torch.Tensor, eps: float, act: str,
-           residual: Optional[torch.Tensor]) -> torch.Tensor:
+           residual: Optional[torch.Tensor],
+           gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     from .models.epilogue import bn_act as run
 
     cl = torch.channels_last
     return run(x.contiguous(memory_format=cl), mean, var, weight, bias, eps,
                act, None if residual is None
-               else residual.contiguous(memory_format=cl))
+               else residual.contiguous(memory_format=cl),
+               None if gate is None else gate.contiguous())
 
 
 @bn_act.register_fake
-def _(x, mean, var, weight, bias, eps, act, residual):
+def _(x, mean, var, weight, bias, eps, act, residual, gate=None):
     return torch.empty_like(x, memory_format=torch.channels_last)

@@ -9,11 +9,14 @@ the fused path's twin through the same dispatch on the CPU
 forward fuses; training, NCHW, f32 and C % 8 != 0 keep the separate
 passes bit for bit. An AED eval forward counts its 62 sites, torch.export
 traces them as frlw_evd_torch::bn_act, and the benchmark's reader of the
-counters gives their share.
+counters gives their share. The identity activation ("linear") and the
+gated residual (RED's SE gate on its shortcut) are cases of the same twin
+and of `refusal` (RED's model-level tests: tests/test_torch_port_red.py).
 
 Tolerance: one bf16 ulp of the larger of the two results, plus 2^-20 of
-the magnitude of the terms summed (|x * scale| + |shift| + |residual|),
-which covers f32 steps taken in another order where the terms cancel.
+the magnitude of the terms summed (|x * scale| + |shift| + |gate *
+residual|), which covers f32 steps taken in another order where the terms
+cancel.
 """
 
 from __future__ import annotations
@@ -47,18 +50,21 @@ def _params(C, dtype, g):
 
 
 def _unfused(x, mean, var, weight, bias, eps, act, residual,
-             dtype=torch.float32):
+             dtype=torch.float32, gate=None):
     """The unfused steps in `dtype`, as separate ops, not rounded."""
     shape = (1, -1, 1, 1)
     y = ((x.to(dtype) - mean.to(dtype).view(shape))
          * torch.rsqrt(var.to(dtype).view(shape) + eps)
          * weight.to(dtype).view(shape) + bias.to(dtype).view(shape))
     y = get_activation(act)(y)
+    if gate is not None:
+        return y + gate.to(dtype).reshape(*gate.shape[:2], 1, 1) * \
+            residual.to(dtype)
     return y if residual is None else y + residual.to(dtype)
 
 
 def assert_within_ulps(got, want, x, mean, var, weight, bias, eps,
-                       residual=None, ulps=1):
+                       residual=None, ulps=1, gate=None):
     """|got - want| within `ulps` bf16 ulps of the larger, plus 2^-20 of
     the terms' magnitude (see the module's docstring)."""
     a, b = got.double(), want.double()
@@ -71,7 +77,10 @@ def assert_within_ulps(got, want, x, mean, var, weight, bias, eps,
     shift = bias.double().view(shape) - mean.double().view(shape) * scale
     mag = (x.double() * scale).abs() + shift.abs()
     if residual is not None:
-        mag = mag + residual.double().abs()
+        r = residual.double()
+        if gate is not None:
+            r = r * gate.double().reshape(*gate.shape[:2], 1, 1)
+        mag = mag + r.abs()
     err = (a - b).abs() - ulps * ulp - mag * 2.0 ** -20
     assert err.max().item() <= 0, (err.max().item(),
                                    (a - b).abs().max().item())
@@ -82,24 +91,56 @@ def _x(N, C, H, W, g, scale=3.0):
     return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
 
+def _gate(N, C, g, shape=None):
+    """A bf16 gate in (0, 1), as RED's SE sigmoid gives: (N, C, 1, 1), or
+    `shape`."""
+    gate = torch.sigmoid(torch.randn(N, C, generator=g) * 2)
+    return gate.to(torch.bfloat16).reshape(shape or (N, C, 1, 1))
+
+
 @pytest.mark.parametrize("C", [8, 64, 512])
 @pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("res", [False, True], ids=["plain", "residual"])
-@pytest.mark.parametrize("act", ["silu", "relu", "lrelu"])
+@pytest.mark.parametrize("res", ["plain", "residual", "gated"])
+@pytest.mark.parametrize("act", ["silu", "relu", "lrelu", "linear"])
 def test_twin_within_one_ulp_of_unfused_f32(act, res, pdtype, C):
-    g = torch.Generator().manual_seed(C + 7 * res)
-    x = _x(2, C, 5, 3, g)
-    residual = _x(2, C, 5, 3, g) if res else None
+    """Each activation without a residual, with one, and with one gated
+    per sample and channel (3 samples, the gate (N, C) at C = 64, else
+    (N, C, 1, 1))."""
+    g = torch.Generator().manual_seed(C + 7 * len(res))
+    N = 3 if res == "gated" else 2
+    x = _x(N, C, 5, 3, g)
+    residual = _x(N, C, 5, 3, g) if res != "plain" else None
+    gate = (_gate(N, C, g, (N, C) if C == 64 else None) if res == "gated"
+            else None)
     params = _params(C, pdtype, g)
-    got = bn_act_plain(x, *params, 1e-5, act, residual)
+    got = bn_act_plain(x, *params, 1e-5, act, residual, gate)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
-    want = _unfused(x, *params, 1e-5, act, residual).to(torch.bfloat16)
-    assert_within_ulps(got, want, x, *params, 1e-5, residual)
+    want = _unfused(x, *params, 1e-5, act, residual,
+                    gate=gate).to(torch.bfloat16)
+    assert_within_ulps(got, want, x, *params, 1e-5, residual, gate=gate)
     # the CPU wrapper is the twin, and so is the registered operator
-    assert torch.equal(bn_act(x, *params, 1e-5, act, residual), got)
+    assert torch.equal(bn_act(x, *params, 1e-5, act, residual, gate), got)
     assert torch.equal(torch.ops.frlw_evd_torch.bn_act(
-        x, *params, 1e-5, act, residual), got)
+        x, *params, 1e-5, act, residual, gate), got)
+
+
+def test_gated_twin_equals_the_separate_f32_passes():
+    """The gated linear form is RED's block end, bn(down) + se * c3, as
+    the separate passes compute it in f32 (conv_epilogue's plain path),
+    rounded once: bit for bit."""
+    g = torch.Generator().manual_seed(11)
+    x, r = _x(3, 16, 4, 6, g), _x(3, 16, 4, 6, g)
+    gate = _gate(3, 16, g)
+    params = _params(16, torch.float32, g)
+    bn = torch.nn.BatchNorm2d(16).eval()
+    with torch.no_grad():
+        for t, v in zip((bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias), params):
+            t.copy_(v)
+        sep = bn(x.float()) + gate.float() * r.float()
+    got = bn_act_plain(x, *params, 1e-5, "linear", r, gate)
+    assert torch.equal(got, sep.to(torch.bfloat16))
 
 
 def test_one_rounding_is_closer_than_three():
@@ -286,6 +327,41 @@ def test_export_traces_the_sites_as_the_operator(on_cpu, tmp_path):
         got = loaded(vol)
     for a, b in zip(got, live):
         assert torch.equal(a, b)
+
+
+def _refusal_operands(case):
+    """A gated site's operands on the CPU (x 3 x 16 x 4 x 6 bf16
+    channels_last), with the gate or residual made wrong as `case` says."""
+    g = torch.Generator().manual_seed(4)
+    x, r = _x(3, 16, 4, 6, g), _x(3, 16, 4, 6, g)
+    gate = _gate(3, 16, g)
+    gate = {"sound": gate, "flat": gate.reshape(3, 16),
+            "shape": _gate(2, 16, g), "channels": _gate(3, 8, g),
+            "dtype": gate.float(), "device": gate.to("meta"),
+            "strided": _gate(3, 32, g)[:, ::2],
+            "no_residual": gate}.get(case)
+    return x, _params(16, torch.float32, g), (
+        None if case == "no_residual" else r), gate
+
+
+@pytest.mark.parametrize("case", ["sound", "flat", "shape", "channels",
+                                  "dtype", "device", "strided",
+                                  "no_residual"])
+def test_refusal_checks_the_gate(case):
+    """`refusal` takes a bf16 (N, C) or (N, C, 1, 1) contiguous gate on x's
+    device beside a residual, and names what is wrong with any other."""
+    x, params, r, gate = _refusal_operands(case)
+    why = epilogue.refusal(x, *params, "linear", r, gate)
+    if case in ("sound", "flat"):
+        assert why is None
+    else:
+        assert why is not None and "gate" in why
+
+
+def test_refusal_takes_the_identity_activation():
+    x, params, r, gate = _refusal_operands("sound")
+    assert epilogue.refusal(x, *params, "linear") is None
+    assert "act must be" in epilogue.refusal(x, *params, "identity")
 
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():

@@ -1138,6 +1138,111 @@ def test_export_of_a_served_model_calls_the_epilogue_operator(cuda,
     assert (live_dets - got_dets).abs().max().item() <= 1e-5
 
 
+def _served_red(cuda, dtype=torch.bfloat16):
+    """RED as the red_gen4 cell builds it, BatchNorm statistics and affines
+    spread away from the identity, served in `dtype` (channels_last)."""
+    from frlw_evd_tpu_torch.models.detector import (RED_IN_CHANNELS,
+                                                    RED_STRIDES)
+    torch.manual_seed(0)
+    model = build_detector(7, family="red", input_channels=16,
+                           in_channels=RED_IN_CHANNELS, strides=RED_STRIDES)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.weight.uniform_(1.0, 2.0, generator=g)
+                m.bias.normal_(0.0, 0.5, generator=g)
+    pipeline._serving_model(model, cuda, dtype)
+    return model
+
+
+def test_bn_act_kernel_matches_twin_at_every_red_site(cuda):
+    """RED's 13 sites at the red_gen4 cell's input (chip_smoke's census of
+    one forward): the stem's and each block's c1 and c2 with relu, c3
+    linear, `down` linear with a residual gated per sample and channel; at
+    B = 2 with bf16 parameters, and each gated site also at B = 3 with f32
+    ones, where a block's pixels straddle two samples (the gate's row
+    changes inside a block).
+    The kernel within one bf16 ulp of its twin (run on the card), plus
+    2^-20 of the f32 terms' magnitude |x * scale| + |mean * scale| +
+    |bias| + |residual| (chip_smoke.bf16_ulps_over, phase 47's tolerance:
+    the kernel folds shift = bias - mean * scale, the twin subtracts mean
+    from x first, so where bias and mean * scale cancel, |shift|
+    understates what the two f32 orders round), each launch counted."""
+    from frlw_evd_tpu_torch.models.epilogue import bn_act, bn_act_plain
+    sites = chip_smoke.red_epilogue_sites(pipeline, cuda)
+    blocks = ((64, 256, 320, 128, 160), (64, 128, 160, 64, 80),
+              (128, 64, 80, 32, 40))
+    want = {("relu", False, 32, 256, 320): 1}
+    for C, H1, W1, H2, W2 in blocks:
+        for key in (("relu", False, C, H1, W1), ("relu", False, C, H2, W2),
+                    ("linear", False, C, H2, W2), ("linear", True, C, H2,
+                                                   W2)):
+            want[key] = want.get(key, 0) + 1
+    assert sites == want
+    cases = [(a, gt, (C, H, W), 2, torch.bfloat16)
+             for a, gt, C, H, W in sites]
+    cases += [(a, gt, (C, H, W), 3, torch.float32)
+              for a, gt, C, H, W in sites if gt]
+    g = torch.Generator().manual_seed(5)
+    for act, gated, (C, H, W), N, dtype in cases:
+        x, r = (torch.randn(N, C, H, W, generator=g).mul(3).to(
+            cuda, torch.bfloat16).contiguous(
+                memory_format=torch.channels_last) for _ in range(2))
+        gate = torch.sigmoid(torch.randn(N, C, 1, 1, generator=g) * 2).to(
+            cuda, torch.bfloat16) if gated else None
+        params = [p.to(cuda, dtype) for p in (
+            torch.randn(C, generator=g), torch.rand(C, generator=g) + .05,
+            torch.randn(C, generator=g), torch.randn(C, generator=g))]
+        residual = r if gated else None
+        before = bn_act.launches
+        got = bn_act(x, *params, 1e-5, act, residual, gate)
+        assert bn_act.launches == before + 1
+        assert got.stride() == x.stride()
+        want = bn_act_plain(x, *params, 1e-5, act, residual, gate)
+        over, _ = chip_smoke.bf16_ulps_over(got, want, x, params, 1e-5,
+                                            residual)
+        assert over <= 0, (act, gated, (N, C, H, W), dtype, over)
+
+
+def test_fused_red_forward_counts_13_sites(cuda, monkeypatch):
+    """A served red_gen4 forward (512x640, full widths, bf16 backbone, f32
+    memory) at B = 2: 13 fused launches and no plain site; the separate
+    passes (KERNEL_DEVICE moved off the card) count 13 plain. The fused
+    head outputs and carries lie within relative L2 0.05 of the separate
+    passes' and no farther from the same model's f32 outputs (TF32 off)
+    than theirs, within 2%, having one rounding a site where they have two
+    to four."""
+    from frlw_evd_tpu_torch.models import epilogue
+    model = _served_red(cuda)
+    x = torch.rand((2, 512, 640, 16), generator=torch.Generator(
+    ).manual_seed(0)).to(cuda)
+    carries = model.init_carries(2, 512, 640, device=cuda)
+
+    def flat(out):
+        new_carries, maps = out
+        return torch.cat([t.double().flatten() for t in
+                          (*maps, *(t for pair in new_carries
+                                    for t in pair))])
+
+    before = epilogue.bn_act.launches
+    with torch.inference_mode():
+        fused, counts = _epilogue_counts(lambda: model(carries, x))
+    assert counts == {"epilogue_fused": 13}
+    assert epilogue.bn_act.launches == before + 13
+    monkeypatch.setattr(epilogue, "KERNEL_DEVICE", "none")
+    with torch.inference_mode():
+        plain, counts = _epilogue_counts(lambda: model(carries, x))
+        ref = _served_red(cuda, torch.float32)(carries, x)
+    assert counts == {"epilogue_plain": 13}
+    assert epilogue.bn_act.launches == before + 13
+    assert _rel(flat(fused), flat(plain)) < 0.05
+    assert _rel(flat(fused), flat(ref)) <= 1.02 * _rel(flat(plain),
+                                                       flat(ref))
+
+
 # RED served with each stream's memory carried (make_pipeline_recurrent)
 
 def test_red_serving_on_card_matches_reference_and_records_memory(cuda):

@@ -13,6 +13,15 @@ tied losses; red_loss's losses within rtol 1e-6 and its gradients within
 builds against JAX's step functions in f64 (detections within 1e-4,
 losses within rtol 2e-4, BatchNorm statistics within 1e-5); a port
 REDDetector through JAX's importer (weights.flax_path) and back, equal.
+
+RED's 13 conv-BN sites (the stem's, and c1, c2, c3 and the SE-gated
+`down` of each SEBottleneck) end in blocks.conv_epilogue. With the fused
+path's dispatch on the CPU (`epilogue.KERNEL_DEVICE` "cpu", the twin in
+the kernel's place), a bf16 channels_last eval forward fuses every site,
+each within one bf16 ulp of its unfused f32 steps on its own operands
+(tests/test_torch_port_bn_act.py's tolerance), and lies within relative
+L2 1e-2 of the separate passes; the separate passes are the arithmetic
+of the blocks before the epilogue, bit for bit; training counts neither.
 """
 
 from __future__ import annotations
@@ -22,11 +31,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from flax.traverse_util import flatten_dict
 
 from frlw_evd_tpu.models import red as jred
 from frlw_evd_tpu.train.checkpoints import import_torch_checkpoint
-from frlw_evd_tpu_torch.models import red
+from frlw_evd_tpu_torch import pipeline
+from frlw_evd_tpu_torch.models import epilogue, red
 from frlw_evd_tpu.train.trainer import \
     make_red_eval_step as j_make_red_eval_step
 from frlw_evd_tpu.train.trainer import \
@@ -35,6 +46,7 @@ from frlw_evd_tpu_torch.train import (TrainState, Trainer, make_config,
                                       make_red_train_step, sgd)
 from frlw_evd_tpu_torch.weights import (flax_path, flax_to_state_dict,
                                         load_flax_variables)
+from test_torch_port_bn_act import _counted, _unfused, assert_within_ulps
 from test_torch_port_memory import _two_torch_threads  # noqa: F401
 from test_torch_port_memory import (random_labels, seeded_variables,
                                     steps_against_jax)
@@ -42,6 +54,7 @@ from test_torch_port_memory import (random_labels, seeded_variables,
 TOL = 2e-4
 ODD = (67, 93)                       # backbone 5x6, pyramid 3x3 ... 1x1
 C_IN = 10
+SITES = 13      # RED's conv epilogues a forward: the stem's, 4 a block
 
 
 @pytest.fixture(scope="module")
@@ -294,3 +307,164 @@ def test_red_weights_round_trip_through_jax_importer(red_pair, tmp_path):
     assert flax_path("backbone.bn1.weight")[1][-1] == "scale"
     assert flax_path("backbone.conv1.weight")[1][-1] == "kernel"
     assert flax_to_state_dict({"params": params}).keys() <= sd.keys()
+
+
+# RED's conv-BN sites through blocks.conv_epilogue (models/epilogue.py)
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    """The fused path's dispatch on CPU tensors (the twin in the kernel's
+    place)."""
+    monkeypatch.setattr(epilogue, "KERNEL_DEVICE", "cpu")
+
+
+def _spread_bn(module, seed):
+    """BatchNorm statistics and affines away from the identity, so that a
+    site that misreads them shows."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.weight.normal_(1.0, 0.3, generator=g)
+                m.bias.normal_(0.0, 0.3, generator=g)
+    return module
+
+
+def _eval_in(module, dtype):
+    """`module` at eval in `dtype`, channels_last (as the card serves it)."""
+    return pipeline.channels_last_(module.to(dtype).eval())
+
+
+def _old_block(block, x):
+    """SEBottleneck's forward as the separate passes it ran before the
+    epilogue (red.py:42-73 step by step)."""
+    def conv_bn(name, h):
+        return getattr(block, f"{name}_bn")(
+            getattr(block, f"{name}_conv")(h))
+
+    out = F.relu(conv_bn("c1", x))
+    out = F.relu(conv_bn("c2", out))
+    out = conv_bn("c3", out)
+    se = out.mean(dim=(2, 3), keepdim=True)
+    se = torch.sigmoid(block.conv_up(F.relu(block.conv_down(se))))
+    return se * out + conv_bn("down", x)
+
+
+def _recorded_sites(monkeypatch):
+    """Each fused site's operands and output, in call order
+    (epilogue.apply wrapped)."""
+    calls, apply = [], epilogue.apply
+
+    def record(*args):
+        out = apply(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(epilogue, "apply", record)
+    return calls
+
+
+def _assert_sites_within_one_ulp(calls):
+    for (x, mean, var, weight, bias, eps, act, residual, gate), out in calls:
+        want = _unfused(x, mean, var, weight, bias, eps, act, residual,
+                        gate=gate).to(torch.bfloat16)
+        assert_within_ulps(out, want, x, mean, var, weight, bias, eps,
+                           residual, gate=gate)
+
+
+def _rel(got, want):
+    a = torch.cat([t.double().flatten() for t in got])
+    b = torch.cat([t.double().flatten() for t in want])
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _bf16_input(shape, seed):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+def test_se_bottleneck_bf16_eval_fuses_its_four_sites(on_cpu, monkeypatch):
+    """c1 and c2 with relu, c3 linear, and `down` linear with c3's output
+    as its residual gated by the SE map (N, C, 1, 1): four fused sites, at
+    an odd batch."""
+    torch.manual_seed(0)
+    block = _eval_in(_spread_bn(red.SEBottleneck(32, 64, 2), 1),
+                     torch.bfloat16)
+    x = _bf16_input((3, 32, 12, 10), 2)
+    calls = _recorded_sites(monkeypatch)
+    with torch.no_grad():
+        got, counts = _counted(lambda: block(x))
+        old = _old_block(block, x)
+    assert counts == {"epilogue_fused": 4}
+    assert [args[6] for args, _ in calls] == ["relu", "relu", "linear",
+                                              "linear"]
+    (*_, residual, gate), _ = calls[3]
+    assert residual is calls[2][1] and gate.shape == (3, 64, 1, 1)
+    assert all(args[8] is None for args, _ in calls[:3])
+    _assert_sites_within_one_ulp(calls)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    # one rounding a site where the old path had two to four: close
+    rel = _rel([got], [old])
+    assert 0 < rel < 1e-2, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_se_bottleneck_separate_passes_are_the_old_arithmetic(dtype):
+    """Off the kernel's device every site takes the separate passes
+    (counted plain), and the block computes what it computed before the
+    epilogue, bit for bit: bn(down) + se * c3 is se * c3 + bn(down)."""
+    torch.manual_seed(0)
+    block = _eval_in(_spread_bn(red.SEBottleneck(32, 64, 2), 3), dtype)
+    x = _bf16_input((3, 32, 12, 10), 4).to(dtype)
+    with torch.no_grad():
+        got, counts = _counted(lambda: block(x))
+        assert torch.equal(got, _old_block(block, x))
+    assert counts == {"epilogue_plain": 4}
+
+
+def test_red_detector_bf16_eval_fuses_its_13_sites(on_cpu, monkeypatch):
+    """A bf16 channels_last REDDetector at eval over two windows (fresh,
+    then carried f32 memory): 13 fused sites a forward and none plain, each
+    within one bf16 ulp of its unfused f32 steps; the separate passes
+    count 13 plain, and the fused outputs and carries lie within relative
+    L2 1e-2 of theirs."""
+    torch.manual_seed(0)
+    model = _eval_in(_spread_bn(red.REDDetector(2, C_IN), 5),
+                     torch.bfloat16)
+    g = torch.Generator().manual_seed(6)
+    windows = torch.rand((2, 2, 64, 96, C_IN), generator=g)
+    calls = _recorded_sites(monkeypatch)
+    outs = {}
+    for seam, kind in (("cpu", "epilogue_fused"), ("cuda", "epilogue_plain")):
+        monkeypatch.setattr(epilogue, "KERNEL_DEVICE", seam)
+        carries = red.REDDetector.init_carries(2, 64, 96)
+        flat = []
+        for x in windows:
+            with torch.no_grad():
+                (carries, maps), counts = _counted(lambda: model(carries, x))
+            assert counts == {kind: SITES}
+            flat += [*maps, *(t for pair in carries for t in pair)]
+        outs[seam] = flat
+    assert len(calls) == 2 * SITES
+    assert sum(args[8] is not None for args, _ in calls) == 2 * 3
+    _assert_sites_within_one_ulp(calls)
+    rel = _rel(outs["cpu"], outs["cuda"])
+    assert 0 < rel < 1e-2, rel
+
+
+def test_red_training_forward_counts_neither(on_cpu):
+    """A training forward (batch statistics) takes the separate passes and
+    counts no epilogue; its gradient reaches the first conv."""
+    torch.manual_seed(0)
+    model = _eval_in(_spread_bn(red.REDDetector(2, C_IN), 7),
+                     torch.bfloat16).train()
+    x = torch.rand((2, 64, 96, C_IN),
+                   generator=torch.Generator().manual_seed(8))
+    (_, (cls, box)), counts = _counted(lambda: model(
+        red.REDDetector.init_carries(2, 64, 96), x))
+    assert counts == {}
+    (cls.float().sum() + box.float().sum()).backward()
+    assert model.backbone.conv1.weight.grad is not None
